@@ -1,10 +1,12 @@
-"""Interactive-style demo: TPU sort vs native CPU baseline.
+"""Interactive-style demo: GPU sort vs native CPU baseline.
 
 CLI port of the reference's browser demo (`example/index.ts`): the same
 knobs (element count, bit count, keys vs keys+values, check_order,
 consecutive sorts) as flags instead of GUI sliders, the same output
 (device time, CPU time, speedup) as a printed table instead of an HTML
-panel, and the same initial-data modes (Random / Sorted).
+panel, and the same initial-data modes (Random / Sorted). Device times are
+host-clock medians around calls ending in `block_until_ready`; the demo
+refuses to run without a GPU.
 
 Usage:
     python examples/demo.py --n 4194304 --values --consecutive 4
@@ -22,7 +24,8 @@ import jax
 import jax.numpy as jnp
 
 import tpu_radix_sort as trs
-from tpu_radix_sort.runtime import device_time
+from tpu_radix_sort.runtime import device as dev
+from tpu_radix_sort.runtime import time_call
 from tpu_radix_sort.runtime.cpu_baseline import cpu_sort, native_available
 
 
@@ -35,9 +38,6 @@ def main():
                         "width — 32, or 64 with --dtype uint64)")
     p.add_argument("--values", action="store_true",
                    help="sort key+value pairs (default keys-only)")
-    p.add_argument("--ranks", action="store_true",
-                   help="promise values are strictly-increasing ranks "
-                        "(argsort payload): 2-array fast path")
     p.add_argument("--sorted", action="store_true", dest="presorted",
                    help="initial data already sorted (reference 'Sorted' mode)")
     p.add_argument("--check-order", action="store_true",
@@ -47,12 +47,6 @@ def main():
                         "previous frame's output (the reference's "
                         "consecutive mode, example/index.ts:169-175): with "
                         "--check-order, frames 2+ hit the early exit")
-    p.add_argument("--method", default="auto",
-                   choices=["auto", "bitonic", "radix", "xla"])
-    p.add_argument("--block-rows", type=int, default=None,
-                   help="engine tile height (the reference's workgroup-size "
-                        "slider, example/index.ts:199-206); default: "
-                        "VMEM-budgeted")
     p.add_argument("--packed", action="store_true",
                    help="sort packed (key,value) records in a 2-D layout "
                         "(the reference's texture-mode runner, "
@@ -67,10 +61,6 @@ def main():
     args = p.parse_args()
     if args.packed and args.values:
         p.error("--packed implies key+value records; drop --values")
-    if args.ranks and args.consecutive > 1:
-        p.error("--ranks with --consecutive > 1: frames 2+ feed the sorted "
-                "permutation back as values, which violates the "
-                "strictly-increasing rank promise")
     wide = args.dtype == "uint64"
     if wide and args.packed:
         p.error("--packed records are u32 pairs; --dtype uint64 unsupported")
@@ -79,7 +69,9 @@ def main():
     if args.bit_count is None:
         args.bit_count = 64 if wide else 32  # default: the key width
 
-    print(f"device: {jax.devices()[0]}")
+    dev.require_gpu()
+    dev.enable_compile_cache()
+    print(f"device: {jax.devices()[0].device_kind}; {dev.card_lines()[0]}")
     rng = np.random.default_rng(args.seed)
     if wide:
         keys_np = rng.integers(0, 2**64, size=args.n, dtype=np.uint64)
@@ -98,8 +90,6 @@ def main():
                 return trs.sort(
                     k, v, bit_count=args.bit_count,
                     check_order=args.check_order,
-                    values_are_ranks=args.ranks, method=args.method,
-                    block_rows=args.block_rows,
                 )
 
         kern = _FunctionalKernel()
@@ -114,8 +104,6 @@ def main():
             count=args.n,
             bit_count=args.bit_count,
             check_order=args.check_order,
-            method=args.method,
-            block_rows=args.block_rows,
         )
     else:
         kern = trs.RadixSortKernel(
@@ -123,9 +111,6 @@ def main():
             has_values=args.values,
             bit_count=args.bit_count,
             check_order=args.check_order,
-            values_are_ranks=args.ranks,
-            method=args.method,
-            block_rows=args.block_rows,
         )
 
     t0 = time.time()
@@ -139,7 +124,7 @@ def main():
         np.asarray(out)
     print(f"compile+first run: {time.time() - t0:.1f}s")
 
-    # device timing (slope method = the reference's timestamp queries)
+    # device timing (the reference's timestamp queries)
     if args.packed:
         step = lambda x: kern.dispatch(x)
         x = packed
@@ -149,18 +134,21 @@ def main():
     else:
         step = lambda k: kern.dispatch(k)
         x = keys
-    t_dev = device_time(step, x, k_lo=1, k_hi=3)
+    def timed(arg):
+        return time_call(step, arg).median
+
+    t_dev = timed(x)
 
     # consecutive-sorts mode (reference example/index.ts:169-175): every
     # frame after the first re-sorts the PREVIOUS frame's output, i.e. an
     # already-sorted buffer — with --check-order the per-frame cost
     # collapses to the early-exit gate from frame 2 on. Frame 1 costs
     # t_dev; frames 2+ all see identical (sorted) input, so one more
-    # slope measurement on the fed-back state prices every later frame.
+    # measurement on the fed-back state prices every later frame.
     t_rest = None
     if args.consecutive > 1:
         fed = step(x)  # frame-1 output == frames-2+ input
-        t_rest = device_time(step, fed, k_lo=1, k_hi=3)
+        t_rest = timed(fed)
 
     # CPU baseline (reference compares against Array.prototype.sort,
     # example/index.ts:147-151; ours is the native C++ radix sort —
@@ -177,7 +165,7 @@ def main():
     kind = "packed records" if args.packed else (
         "key+value" if args.values else "keys-only")
     print(f"\n  n={args.n:,}  {kind} {args.dtype}  bit_count={args.bit_count}"
-          f"  check_order={args.check_order}  method={args.method}")
+          f"  check_order={args.check_order}")
     if t_rest is not None:
         for fr in range(1, args.consecutive + 1):
             t_fr = t_dev if fr == 1 else t_rest
@@ -185,11 +173,11 @@ def main():
             print(f"  frame {fr:2d}: {t_fr*1e3:9.3f} ms   "
                   f"{args.n/t_fr/1e9:7.3f} Gkeys/s{note}")
         t_avg = (t_dev + (args.consecutive - 1) * t_rest) / args.consecutive
-        print(f"  TPU avg over {args.consecutive} consecutive sorts: "
+        print(f"  GPU avg over {args.consecutive} consecutive sorts: "
               f"{t_avg*1e3:9.3f} ms")
         t_dev = t_avg
     else:
-        print(f"  TPU:  {t_dev*1e3:9.3f} ms   {args.n/t_dev/1e9:7.3f} Gkeys/s")
+        print(f"  GPU:  {t_dev*1e3:9.3f} ms   {args.n/t_dev/1e9:7.3f} Gkeys/s")
     cpu_kind = "numpy" if wide else (
         "native radix" if native_available() else "numpy")
     print(f"  CPU:  {t_cpu*1e3:9.3f} ms   ({cpu_kind})")

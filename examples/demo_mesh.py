@@ -3,9 +3,8 @@
 The reference has no multi-device story (browser, one GPUDevice); this
 demo drives the new-subsystem layer (SURVEY.md §2.4/§7): both exchange
 strategies over a `jax.sharding.Mesh` axis, verified against the golden
-model. On this machine there is one real chip, so the default runs on a
-virtual CPU mesh (the same path `tests/` and the driver's multichip
-dryrun validate); on real multi-chip hardware the same code rides ICI.
+model, on a mesh of virtual CPU devices (the path `tests/` validates).
+`chip_smoke.py --mesh4` runs the same sorts on four GPUs.
 
 Usage:
     python examples/demo_mesh.py --devices 8 --n 100000 --values
@@ -40,6 +39,7 @@ from jax.sharding import Mesh
 import tpu_radix_sort as trs
 from tpu_radix_sort.models.golden import golden_sort
 from tpu_radix_sort.parallel import sharded
+from tpu_radix_sort.runtime import device as dev
 
 
 def main():
@@ -68,6 +68,7 @@ def main():
                         "splitter bisects the joined u64 domain)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
+    dev.enable_compile_cache()
     wide = args.dtype == "uint64"
     if wide:
         jax.config.update("jax_enable_x64", True)

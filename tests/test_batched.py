@@ -1,10 +1,8 @@
 """Batched per-row sorts (`sort_batched` / `argsort_batched`) vs NumPy.
 
 Extension past the reference (single flat buffer per sort): each row of a
-(B, n) array sorts independently through the row-local bitonic network
-(`ops/bitonic.py sort_rows_padded` — rounds capped at the row length, the
-final merge forced ascending; see `ops/batched.py`). Oracle: NumPy stable
-per-row sort/argsort.
+(B, n) array sorts independently (`lax.sort` along the last axis, see
+`ops/batched.py`). Oracle: NumPy stable per-row sort/argsort.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -42,8 +40,7 @@ def test_batched_keys_and_values(rng):
         np.asarray(trs.argsort_batched(jnp.asarray(k))), ref_o)
     # generic (non-rank) payload: arbitrary values co-move
     pay = rng.integers(0, 2**32, (B, n), dtype=np.uint64).astype(np.uint32)
-    okp, ovp = trs.sort_batched(jnp.asarray(k), jnp.asarray(pay),
-                                values_are_ranks=False)
+    okp, ovp = trs.sort_batched(jnp.asarray(k), jnp.asarray(pay))
     np.testing.assert_array_equal(np.asarray(okp), ref_k)
     np.testing.assert_array_equal(
         np.asarray(ovp), np.take_along_axis(pay, ref_o, axis=1))
@@ -51,7 +48,7 @@ def test_batched_keys_and_values(rng):
 
 def test_batched_masked_and_descending(rng):
     # masked keys carry the full word per row; descending flips key bits;
-    # non-pow2 row length exercises the per-row sentinel pad
+    # odd row lengths
     B, n = 7, 257
     k = rng.integers(0, 2**32, (B, n), dtype=np.uint64).astype(np.uint32)
     for desc in (False, True):
@@ -62,11 +59,11 @@ def test_batched_masked_and_descending(rng):
     ref2, _ = _ref(k2, bit_count=28)
     out2 = trs.sort_batched(jnp.asarray(k2), bit_count=28)
     np.testing.assert_array_equal(np.asarray(out2), ref2)
-    # rows spanning multiple tiles: the cross-tile row-local merge rounds
+    # long rows, few of them
     k3 = rng.integers(0, 2**32, (3, 4000), dtype=np.uint64).astype(np.uint32)
-    out3 = trs.sort_batched(jnp.asarray(k3), block_rows=4)
+    out3 = trs.sort_batched(jnp.asarray(k3))
     np.testing.assert_array_equal(np.asarray(out3), np.sort(k3, axis=1))
-    # odd batch count with tiny rows: tile-divisibility fallback
+    # odd batch count with tiny rows
     k4 = rng.integers(0, 2**32, (5, 64), dtype=np.uint64).astype(np.uint32)
     np.testing.assert_array_equal(
         np.asarray(trs.sort_batched(jnp.asarray(k4))), np.sort(k4, axis=1))
@@ -89,12 +86,12 @@ def test_batched_xla_parity(rng):
     k = rng.integers(0, 2**32, (B, n), dtype=np.uint64).astype(np.uint32)
     v = np.tile(np.arange(n, dtype=np.uint32), (B, 1))
     for kwargs in ({}, {"bit_count": 12, "descending": True}):
-        a = trs.sort_batched(jnp.asarray(k), jnp.asarray(v),
-                             method="bitonic", **kwargs)
-        b = trs.sort_batched(jnp.asarray(k), jnp.asarray(v),
-                             method="xla", **kwargs)
-        np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-        np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
+        ref_k, ref_o = _ref(k, **kwargs)
+        for method in ("auto", "xla"):
+            a = trs.sort_batched(jnp.asarray(k), jnp.asarray(v),
+                                 method=method, **kwargs)
+            np.testing.assert_array_equal(np.asarray(a[0]), ref_k)
+            np.testing.assert_array_equal(np.asarray(a[1]), ref_o)
 
 
 def test_batched_validation():

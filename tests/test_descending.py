@@ -7,7 +7,7 @@ import tpu_radix_sort as trs
 from tpu_radix_sort.models.golden import golden_sort
 
 
-@pytest.mark.parametrize("method", ["bitonic", "xla"])
+@pytest.mark.parametrize("method", ["auto", "xla"])
 def test_descending_keys(rng, method):
     k = rng.integers(0, 2**32, 3000, dtype=np.uint64).astype(np.uint32)
     got = np.asarray(trs.sort(jnp.asarray(k), descending=True, method=method))
@@ -15,16 +15,14 @@ def test_descending_keys(rng, method):
     assert (got[:-1] >= got[1:]).all()
 
 
-def test_descending_radix(rng):
-    # small + low bit_count: the radix engine is slow under interpret mode
+@pytest.mark.parametrize("bit_count", [4, 8, 24])
+def test_descending_masked_keys_only(rng, bit_count):
+    # masked keys-only descending: the full key rides as the payload
     k = rng.integers(0, 2**32, 3000, dtype=np.uint64).astype(np.uint32)
     got = np.asarray(
-        trs.sort(jnp.asarray(k), descending=True, method="radix",
-                 bit_count=8, block_rows=8)
-    )
+        trs.sort(jnp.asarray(k), descending=True, bit_count=bit_count))
     np.testing.assert_array_equal(
-        got, golden_sort(k, descending=True, bit_count=8)
-    )
+        got, golden_sort(k, descending=True, bit_count=bit_count))
 
 
 def test_descending_kv_stable_masked_subcount(rng):

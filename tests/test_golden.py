@@ -61,3 +61,28 @@ def test_is_sorted():
     assert not golden_is_sorted(np.array([1, 3, 2], dtype=np.uint32))
     # masked order check
     assert golden_is_sorted(np.array([0x12, 0x03], dtype=np.uint32), bit_count=4)
+
+
+def test_prefix_sum_exact_past_2_pow_53():
+    """Running sums past 2^53 (where a float64 intermediate drops low bits)
+    stay exact mod 2^32."""
+    x = np.full(1 << 23, 0xFFFFFFFF, dtype=np.uint32)  # total ~ 2^55
+    x[::3] = 0x7FFFFFFB
+    out = golden_prefix_sum(x)
+    sums = np.cumsum(x.astype(object))  # Python integers: exact
+    for i in (1, 2, 3, (1 << 22) + 7, x.size - 1):
+        assert int(out[i]) == int(sums[i - 1]) % (1 << 32), i
+
+
+@pytest.mark.parametrize("dtype", ["int64", "float64", "float32", "int32",
+                                   "float16"])
+def test_total_order_matches_numeric_sort(rng, dtype):
+    k = (rng.standard_normal(2000) * 100).astype(dtype)
+    k[:300] = k[0]  # equal run: stability
+    v = np.arange(k.size, dtype=np.uint32)
+    rk, rv = golden_sort(k, v, total_order=True)
+    order = np.argsort(k, kind="stable")
+    assert np.array_equal(rk, k[order]) and np.array_equal(rv, v[order])
+    rkd, rvd = golden_sort(k, v, total_order=True, descending=True)
+    order_d = np.argsort(-k.astype(np.float64), kind="stable")
+    assert np.array_equal(rkd, k[order_d]) and np.array_equal(rvd, v[order_d])

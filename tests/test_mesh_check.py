@@ -94,8 +94,7 @@ def test_mesh_check_jits(rng):
 
 
 def test_mesh_check_flags(rng):
-    """total_order / descending on the distributed checks (round-4 VERDICT
-    item 2): the mesh checks verify the same key views the mesh sorts
+    """total_order / descending on the distributed checks: the mesh checks verify the same key views the mesh sorts
     produce, matching single-chip bit-for-bit."""
     mesh = make_mesh(8)
     n = 4096

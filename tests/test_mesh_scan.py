@@ -1,7 +1,7 @@
 """Distributed prefix sum vs the golden oracle, on a virtual 8-device mesh.
 
 The reference's PrefixSumKernel is single-GPU (`src/kernels/
-PrefixSumKernel.ts`); this is the mesh lift (per-shard Pallas scan + one
+PrefixSumKernel.ts`); this is the mesh lift (per-shard scan + one
 all_gather of shard totals, `parallel/scan.py`), tested with the same
 oracle style as the single-chip op (`example/tests.ts:288-296`).
 """

@@ -136,7 +136,7 @@ def test_mesh_sort_total_order_negative_floats(rng):
 
 @pytest.mark.parametrize("n_dev", [1, 8])
 def test_mesh_sort_check_order(rng, n_dev):
-    """Distributed early-exit gate (round-2 VERDICT item 3): sorted input
+    """Distributed early-exit gate: sorted input
     passes through byte-exact; unsorted input — including disorder confined
     to a single shard boundary — still sorts to golden."""
     mesh = make_mesh(n_dev)
@@ -192,15 +192,21 @@ def test_mesh_sort_check_order_gate_actually_fires(rng, monkeypatch):
         return tuple(a ^ jnp.uint32(0xDEAD) for a in real(arrs, **kw))
 
     monkeypatch.setattr(ms_mod, "_shard_sort", poisoned)
-    srt = np.sort(rng.integers(0, 2**32, size=n, dtype=np.uint32))
-    got = mesh_sort(sharded(mesh, "x", jnp.asarray(srt)), mesh=mesh,
-                    check_order=True)
-    np.testing.assert_array_equal(np.asarray(got), srt)  # passthrough fired
-    # sanity: unsorted input takes the (poisoned) sort branch
-    rnd = rng.integers(0, 2**32, size=n, dtype=np.uint32)
-    got = mesh_sort(sharded(mesh, "x", jnp.asarray(rnd)), mesh=mesh,
-                    check_order=True)
-    assert not np.array_equal(np.asarray(got), golden_sort(rnd))
+    # the sort core is jitted: drop cached clean programs so the poisoned
+    # body is traced, and clear again so no poisoned program leaks out
+    jax.clear_caches()
+    try:
+        srt = np.sort(rng.integers(0, 2**32, size=n, dtype=np.uint32))
+        got = mesh_sort(sharded(mesh, "x", jnp.asarray(srt)), mesh=mesh,
+                        check_order=True)
+        np.testing.assert_array_equal(np.asarray(got), srt)  # gate fired
+        # sanity: unsorted input takes the (poisoned) sort branch
+        rnd = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+        got = mesh_sort(sharded(mesh, "x", jnp.asarray(rnd)), mesh=mesh,
+                        check_order=True)
+        assert not np.array_equal(np.asarray(got), golden_sort(rnd))
+    finally:
+        jax.clear_caches()
 
 
 def test_mesh_sort_check_order_jits(rng):
@@ -223,8 +229,8 @@ def test_mesh_sort_jit_sharded(rng):
 
 def test_public_sort_mesh_routing(rng, monkeypatch):
     """`trs.sort(..., mesh=)` is the single distributed entrypoint: auto
-    routes by device count (compare-split <= 4 devices, exchange above —
-    DESIGN.md crossing-volume table), explicit method names force a
+    routes by device count (compare-split <= 4 devices, exchange above),
+    explicit method names force a
     strategy, and results match golden either way."""
     import tpu_radix_sort as trs
     from tpu_radix_sort import parallel as par

@@ -146,8 +146,7 @@ def test_exchange_sort_descending(rng):
 
 
 def test_exchange_sort_check_order(rng):
-    """Distributed early-exit gate on the exchange strategy (round-2 VERDICT
-    item 3): sorted passthrough is byte-exact; boundary-only disorder and
+    """Distributed early-exit gate on the exchange strategy: sorted passthrough is byte-exact; boundary-only disorder and
     random input still reach golden."""
     mesh = make_mesh(8)
     n = 4096
@@ -209,26 +208,30 @@ def test_exchange_check_order_gate_actually_fires(rng, monkeypatch):
         return tuple(a ^ jnp.uint32(0xDEAD) for a in real(arrs, **kw))
 
     monkeypatch.setattr(rx_mod, "_shard_exchange_sort", poisoned)
-    srt = np.sort(rng.integers(0, 2**32, size=n, dtype=np.uint32))
-    got = exchange_sort(sharded(mesh, "x", jnp.asarray(srt)), mesh=mesh,
-                        check_order=True)
-    np.testing.assert_array_equal(np.asarray(got), srt)  # passthrough fired
-    rnd = rng.integers(0, 2**32, size=n, dtype=np.uint32)
-    got = exchange_sort(sharded(mesh, "x", jnp.asarray(rnd)), mesh=mesh,
-                        check_order=True)
-    assert not np.array_equal(np.asarray(got), golden_sort(rnd))
+    jax.clear_caches()  # the core is jitted: trace the poisoned body
+    try:
+        srt = np.sort(rng.integers(0, 2**32, size=n, dtype=np.uint32))
+        got = exchange_sort(sharded(mesh, "x", jnp.asarray(srt)), mesh=mesh,
+                            check_order=True)
+        np.testing.assert_array_equal(np.asarray(got), srt)  # gate fired
+        rnd = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+        got = exchange_sort(sharded(mesh, "x", jnp.asarray(rnd)), mesh=mesh,
+                            check_order=True)
+        assert not np.array_equal(np.asarray(got), golden_sort(rnd))
+    finally:
+        jax.clear_caches()
 
 
 def test_exchange_sort_merge_and_fallback_branches(rng):
-    """Phase 4 is a log2(D)-round merge tree when every chunk fits its slot
-    (uniform data), and the contiguous full re-sort under slot-overflowing
-    skew (already-sorted input sends one full-L chunk). Both branches must
-    reach golden byte-exactly; stability pinned with heavy duplicates."""
+    """Received chunks of balanced sizes (uniform data) and of maximally
+    skewed sizes (already-sorted input sends one full-L chunk per shard)
+    must both re-sort to golden byte-exactly; stability pinned with heavy
+    duplicates."""
     mesh = make_mesh(8)
     n = 8192
     values = np.arange(n, dtype=np.uint32)
 
-    # merge branch: uniform random keys -> every chunk ~L/D <= slot
+    # uniform random keys -> every chunk ~L/D
     keys = rng.integers(0, 2**16, size=n, dtype=np.uint32)  # dupes
     gk, gv = exchange_sort(
         sharded(mesh, "x", jnp.asarray(keys)),
@@ -239,8 +242,7 @@ def test_exchange_sort_merge_and_fallback_branches(rng):
     np.testing.assert_array_equal(np.asarray(gk), rk)
     np.testing.assert_array_equal(np.asarray(gv), rv)
 
-    # fallback branch: sorted keys -> shard d sends its whole block to d
-    # (chunk size L > slot = 2L/D), forcing the contiguous re-sort path
+    # sorted keys -> shard d sends its whole block to d
     srt = np.sort(keys)
     gk, gv = exchange_sort(
         sharded(mesh, "x", jnp.asarray(srt)),
@@ -253,8 +255,8 @@ def test_exchange_sort_merge_and_fallback_branches(rng):
 
 
 def test_exchange_sort_nonpow2_devices(rng):
-    """Non-pow2 D: the merge tree pads to Dp slots of identical sentinel
-    tuples; output must still be golden."""
+    """Non-pow2 D: D-1 = 5 simultaneous splitter boundaries; output must
+    still be golden."""
     mesh = make_mesh(6)
     n = 6000
     keys = rng.integers(0, 2**32, size=n, dtype=np.uint32)
@@ -263,14 +265,12 @@ def test_exchange_sort_nonpow2_devices(rng):
 
 
 def test_real_ragged_all_to_all_probe(rng):
-    """Probe for the REAL `jax.lax.ragged_all_to_all` on the CPU test mesh
-    (round-2 VERDICT item 8: flip the dryrun to the real collective the day
-    XLA:CPU grows the thunk). As of jax 0.9.0 XLA:CPU raises UNIMPLEMENTED
-    (`ragged-all-to-all is not supported by XLA:CPU ThunkEmitter` — verified
-    2026-08-17 on the real 8-device mesh; an earlier probe that appeared to
-    succeed had silently degenerated to a 1-device TPU mesh). The test
-    SKIPS on that error so the day the thunk lands, the golden checks below
-    run automatically and the emulation note can retire."""
+    """Probe for the REAL `jax.lax.ragged_all_to_all` on the CPU test mesh.
+    As of jax 0.9.0 XLA:CPU raises UNIMPLEMENTED (`ragged-all-to-all is not
+    supported by XLA:CPU ThunkEmitter`). The test SKIPS on that error so
+    the day the thunk lands, the golden checks below run automatically and
+    the emulation note can retire. GPU meshes run the real collective
+    (`chip_smoke.py --mesh4`)."""
     mesh = make_mesh(8)
     n = 4096
     keys = rng.integers(0, 2**16, size=n, dtype=np.uint32)
@@ -318,8 +318,7 @@ def _u64_with_hi_dups(rng, n):
 
 
 def test_exchange_sort_u64_matrix(rng, _x64):
-    """64-bit keys through the exact-splitter exchange (round-4 VERDICT
-    item 1): the splitter bisects the joined u64 probe domain (4 psum
+    """64-bit keys through the exact-splitter exchange: the splitter bisects the joined u64 probe domain (4 psum
     rounds at k=16); ties distribute closed-form exactly as for u32."""
     mesh = make_mesh(8)
     n = 4096

@@ -79,10 +79,11 @@ def test_segments_masked_descending_xla(rng):
         _ref(k, offs))
     for kwargs in ({}, {"bit_count": 12, "descending": True}):
         a = trs.sort_segments(jnp.asarray(k), jnp.asarray(offs),
-                              method="bitonic", **kwargs)
+                              method="auto", **kwargs)
         b = trs.sort_segments(jnp.asarray(k), jnp.asarray(offs),
                               method="xla", **kwargs)
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        np.testing.assert_array_equal(np.asarray(a), _ref(k, offs, **kwargs))
 
 
 def test_segments_traced_offsets_share_pipeline(rng):

@@ -2,12 +2,9 @@
 
 Mirrors the reference's randomized sweep (`example/tests.ts:9-107`):
 element counts across decades with jitter, random sub-counts, random flags,
-tile-shape sweeps (the reference sweeps workgroup shapes and requires
-identical output), keys-only and key+value, uint32/float32, bit_count 4..32.
-
-Sizes are chosen to share padded engine configurations (compile cache) so the
-interpret-mode suite stays fast; the full-size runs live in benchmarks/ and
-bench.py on real hardware.
+keys-only and key+value, uint32/float32/int32 keys, bit_count 4..32, and
+the extensions (descending, total order, wide payloads). The full-size
+runs live in chip_smoke.py and bench.py on the GPU.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,14 +13,7 @@ import pytest
 import tpu_radix_sort as trs
 from tpu_radix_sort.models.golden import golden_sort
 
-METHODS = ["bitonic", "xla", "radix"]
-
-
-def _kw(method):
-    """Per-method engine kwargs for the matrix: the radix engine's default
-    tile (512 rows) would pad tiny test inputs to 64K elements; 16 rows
-    keeps interpret-mode padding sane and forces multi-block machinery."""
-    return {"block_rows": 16} if method == "radix" else {}
+KEY_DTYPES = ["uint32", "float32", "int32"]
 
 
 def _rand_keys(rng, n, dtype="uint32", lo=0, hi=2**32):
@@ -31,68 +21,102 @@ def _rand_keys(rng, n, dtype="uint32", lo=0, hi=2**32):
         return rng.integers(lo, hi, n, dtype=np.uint64).astype(np.uint32)
     if dtype == "float32":
         return (rng.random(n) * 1e6).astype(np.float32)  # non-negative
+    if dtype == "int32":
+        return rng.integers(0, min(hi, 2**31), n).astype(np.int32)
     raise ValueError(dtype)
 
 
-@pytest.mark.parametrize("method", METHODS)
+def _payload(rng, n, kind):
+    if kind == "u32":
+        return rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    if kind == "f32":
+        return rng.standard_normal(n).astype(np.float32)
+    if kind == "i32":
+        return rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    if kind == "iota":
+        return np.arange(n, dtype=np.uint32)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("dtype", KEY_DTYPES)
 @pytest.mark.parametrize("n", [1, 2, 100, 127, 128, 129, 1000, 3333])
-def test_keys_only(rng, method, n):
-    k = _rand_keys(rng, n)
-    out = np.asarray(trs.sort(jnp.asarray(k), method=method, **_kw(method)))
+def test_keys_only(rng, dtype, n):
+    k = _rand_keys(rng, n, dtype)
+    out = np.asarray(trs.sort(jnp.asarray(k)))
     assert np.array_equal(out, golden_sort(k))
 
 
-@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("payload", ["u32", "f32", "i32", "iota"])
 @pytest.mark.parametrize("n", [100, 1000, 3333])
-def test_key_value(rng, method, n):
+def test_key_value(rng, payload, n):
     k = _rand_keys(rng, n, hi=max(2, n // 3))  # many duplicates: stability
-    v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method=method, **_kw(method))
+    v = _payload(rng, n, payload)
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v))
+    rk, rv = golden_sort(k, v)
+    assert np.array_equal(np.asarray(ok), rk)
+    assert np.array_equal(np.asarray(ov).view(np.uint32), rv.view(np.uint32))
+
+
+@pytest.mark.parametrize("n", [100, 1000, 3333])
+def test_key_value_u64_payload(rng, x64, n):
+    k = _rand_keys(rng, n, hi=max(2, n // 3))
+    v = rng.integers(0, 2**64, n, dtype=np.uint64)
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v))
     rk, rv = golden_sort(k, v)
     assert np.array_equal(np.asarray(ok), rk)
     assert np.array_equal(np.asarray(ov), rv)
 
 
-@pytest.mark.parametrize("method", METHODS)
-def test_subcount(rng, method):
+@pytest.mark.parametrize("dtype", KEY_DTYPES)
+def test_subcount(rng, dtype):
     # sort a random prefix of a larger buffer (example/tests.ts:31,56)
     n = 3333
-    k = _rand_keys(rng, n)
+    k = _rand_keys(rng, n, dtype)
     v = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
     for count in [0, 1, 17, 1000, n]:
-        ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), count=count, method=method, **_kw(method))
+        ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), count=count)
         rk, rv = golden_sort(k, v, count=count)
         assert np.array_equal(np.asarray(ok), rk), count
         assert np.array_equal(np.asarray(ov), rv), count
 
 
-@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("dtype", KEY_DTYPES)
 @pytest.mark.parametrize("bit_count", [4, 8, 16, 20, 28, 32])
-def test_bit_count(rng, method, bit_count):
+def test_bit_count(rng, dtype, bit_count):
     n = 3333
-    k = _rand_keys(rng, n)
+    k = _rand_keys(rng, n, dtype)
     v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), bit_count=bit_count, method=method, **_kw(method))
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), bit_count=bit_count)
     rk, rv = golden_sort(k, v, bit_count=bit_count)
     assert np.array_equal(np.asarray(ok), rk)
     assert np.array_equal(np.asarray(ov), rv)
 
 
-@pytest.mark.parametrize("method", METHODS)
-def test_bit_count_keys_only_is_stable(rng, method):
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("dtype", ["uint32", "int32"])
+def test_bit_count_keys_only_is_stable(rng, dtype, descending):
     # keys-only with masked high bits still requires stable full-key output
-    k = np.array([0x35, 0x25, 0x15, 0x05, 0x14, 0x24], dtype=np.uint32)
-    out = np.asarray(trs.sort(jnp.asarray(k), bit_count=4, method=method, **_kw(method)))
-    assert np.array_equal(out, golden_sort(k, bit_count=4))
+    k = np.array([0x35, 0x25, 0x15, 0x05, 0x14, 0x24], dtype=dtype)
+    out = np.asarray(trs.sort(jnp.asarray(k), bit_count=4,
+                              descending=descending))
+    assert np.array_equal(out, golden_sort(k, bit_count=4,
+                                           descending=descending))
 
 
-@pytest.mark.parametrize("method", METHODS)
-def test_float32_keys(rng, method):
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_signed_keys_total_order(rng, dtype, descending):
+    # beyond the reference: negative floats and int32 in true numeric order
     n = 3333
-    k = _rand_keys(rng, n, dtype="float32")
+    if dtype == "float32":
+        k = (rng.random(n) * 100 - 50).astype(np.float32)
+    else:
+        k = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+    k[: n // 4] = k[0]  # equal-key run: stability
     v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method=method, **_kw(method))
-    rk, rv = golden_sort(k, v)
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), total_order=True,
+                      descending=descending)
+    rk, rv = golden_sort(k, v, total_order=True, descending=descending)
     assert np.array_equal(np.asarray(ok), rk)
     assert np.array_equal(np.asarray(ov), rv)
 
@@ -101,56 +125,37 @@ def test_float32_values_payload(rng):
     n = 1000
     k = _rand_keys(rng, n)
     v = rng.random(n).astype(np.float32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method="bitonic")
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v))
     rk, rv = golden_sort(k, v)
     assert np.array_equal(np.asarray(ok), rk)
     assert np.array_equal(np.asarray(ov), rv)
 
 
-@pytest.mark.parametrize("block_rows", [2, 4, 8, 16, 64])
-def test_tile_shape_invariance(rng, block_rows):
-    # the reference sweeps workgroup shapes and demands identical output
-    # (example/tests.ts:19-28); our tiling knob must be output-invariant.
-    # small tiles force the full cross-stage + merge-tail machinery.
-    n = 2000
-    k = _rand_keys(rng, n, hi=500)
-    v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method="bitonic", block_rows=block_rows)
-    rk, rv = golden_sort(k, v)
-    assert np.array_equal(np.asarray(ok), rk)
-    assert np.array_equal(np.asarray(ov), rv)
-
-
-@pytest.mark.parametrize("block_rows", [8, 16, 64])
-def test_radix_tile_shape_invariance(rng, block_rows):
-    # the radix engine's tiling knob must be output-invariant too (its
-    # stability is by construction, not tie-break — same requirement)
-    n = 2000
-    k = _rand_keys(rng, n, hi=500)
-    v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method="radix", block_rows=block_rows)
-    rk, rv = golden_sort(k, v)
-    assert np.array_equal(np.asarray(ok), rk)
-    assert np.array_equal(np.asarray(ov), rv)
-
-
-@pytest.mark.parametrize("method", METHODS)
-def test_check_order_on_sorted_input(rng, method):
+@pytest.mark.parametrize("payload", [None, "u32", "f32"])
+def test_check_order_on_sorted_input(rng, payload):
     n = 1000
     k = np.sort(_rand_keys(rng, n))
-    v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), check_order=True, method=method, **_kw(method))
+    if payload is None:
+        out = trs.sort(jnp.asarray(k), check_order=True)
+        assert np.array_equal(np.asarray(out), k)
+        return
+    v = _payload(rng, n, payload)
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), check_order=True)
     rk, rv = golden_sort(k, v)
     assert np.array_equal(np.asarray(ok), rk)
     assert np.array_equal(np.asarray(ov), rv)
 
 
-@pytest.mark.parametrize("method", METHODS)
-def test_check_order_on_unsorted_input(rng, method):
+@pytest.mark.parametrize("payload", [None, "u32", "f32"])
+def test_check_order_on_unsorted_input(rng, payload):
     n = 1000
-    k = _rand_keys(rng, n)
-    v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), check_order=True, method=method, **_kw(method))
+    k = _rand_keys(rng, n, hi=300)
+    if payload is None:
+        out = trs.sort(jnp.asarray(k), check_order=True)
+        assert np.array_equal(np.asarray(out), golden_sort(k))
+        return
+    v = _payload(rng, n, payload)
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), check_order=True)
     rk, rv = golden_sort(k, v)
     assert np.array_equal(np.asarray(ok), rk)
     assert np.array_equal(np.asarray(ov), rv)
@@ -158,23 +163,23 @@ def test_check_order_on_unsorted_input(rng, method):
 
 def test_check_order_keys_only(rng):
     k = np.sort(_rand_keys(rng, 1000))
-    out = np.asarray(trs.sort(jnp.asarray(k), check_order=True, method="bitonic"))
+    out = np.asarray(trs.sort(jnp.asarray(k), check_order=True))
     assert np.array_equal(out, golden_sort(k))
 
 
 def test_total_order_extension(rng):
     # beyond the reference: negative floats and int32 in true numeric order
     f = (rng.random(1000) * 100 - 50).astype(np.float32)
-    out = np.asarray(trs.sort(jnp.asarray(f), total_order=True, method="bitonic"))
+    out = np.asarray(trs.sort(jnp.asarray(f), total_order=True))
     assert np.array_equal(out, np.sort(f))
     i = rng.integers(-(2**31), 2**31, 1000, dtype=np.int64).astype(np.int32)
-    out = np.asarray(trs.sort(jnp.asarray(i), total_order=True, method="bitonic"))
+    out = np.asarray(trs.sort(jnp.asarray(i), total_order=True))
     assert np.array_equal(out, np.sort(i))
 
 
 def test_argsort(rng):
     k = _rand_keys(rng, 1000, hi=100)
-    idx = np.asarray(trs.argsort(jnp.asarray(k), method="bitonic"))
+    idx = np.asarray(trs.argsort(jnp.asarray(k)))
     assert np.array_equal(idx, np.argsort(k, kind="stable").astype(np.uint32))
 
 
@@ -184,16 +189,16 @@ def test_sort_packed_2d(rng):
     k = _rand_keys(rng, h * w, hi=1000)
     v = np.arange(h * w, dtype=np.uint32)
     packed = np.stack([k, v], axis=-1).reshape(h, w, 2)
-    out = np.asarray(trs.sort_packed(jnp.asarray(packed), method="bitonic"))
+    out = np.asarray(trs.sort_packed(jnp.asarray(packed)))
     rk, rv = golden_sort(k, v)
     assert np.array_equal(out.reshape(-1, 2)[:, 0], rk)
     assert np.array_equal(out.reshape(-1, 2)[:, 1], rv)
 
 
-@pytest.mark.parametrize("method", METHODS)
-def test_randomized_matrix(rng, method):
-    # compressed version of the reference's random sweep; counts constrained
-    # to shared pad windows so the compile cache is reused
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_randomized_matrix(seed):
+    # compressed version of the reference's random sweep
+    rng = np.random.default_rng(seed)
     windows = [(100, 128), (900, 1024), (3000, 4096)]
     for i in range(8):
         lo, hi = windows[i % len(windows)]
@@ -203,42 +208,31 @@ def test_randomized_matrix(rng, method):
         dtype = str(rng.choice(["uint32", "float32"]))
         with_values = bool(rng.integers(0, 2))
         check_order = bool(rng.integers(0, 2))
+        descending = bool(rng.integers(0, 2))
         k = _rand_keys(rng, n, dtype=dtype)
         kj = jnp.asarray(k)
+        cfg = (n, count, bit_count, dtype, check_order, descending)
         if with_values:
             v = np.arange(n, dtype=np.uint32)
-            # the iota payload always satisfies the rank contract: flip the
-            # 2-array fast path on randomly to sweep it through the matrix
-            ranks = bool(rng.integers(0, 2))
-            ok, ov = trs.sort(kj, jnp.asarray(v), count=count, bit_count=bit_count,
-                              check_order=check_order, method=method,
-                              values_are_ranks=ranks, **_kw(method))
-            rk, rv = golden_sort(k, v, count=count, bit_count=bit_count)
-            assert np.array_equal(np.asarray(ok), rk), (n, count, bit_count, dtype)
-            assert np.array_equal(np.asarray(ov), rv), (n, count, bit_count, dtype)
+            ok, ov = trs.sort(kj, jnp.asarray(v), count=count,
+                              bit_count=bit_count, check_order=check_order,
+                              descending=descending)
+            rk, rv = golden_sort(k, v, count=count, bit_count=bit_count,
+                                 descending=descending)
+            assert np.array_equal(np.asarray(ok), rk), cfg
+            assert np.array_equal(np.asarray(ov), rv), cfg
         else:
             out = trs.sort(kj, count=count, bit_count=bit_count,
-                           check_order=check_order, method=method, **_kw(method))
-            ref = golden_sort(k, count=count, bit_count=bit_count)
-            assert np.array_equal(np.asarray(out), ref), (n, count, bit_count, dtype)
-
-
-@pytest.mark.slow
-def test_large_sort_with_merge_rounds(rng):
-    # big enough to force multi-tile merge rounds at the default tile size
-    # is exercised on hardware in bench.py; here with a reduced tile
-    n = 300_000
-    k = _rand_keys(rng, n, hi=10_000)
-    v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method="bitonic", block_rows=64)
-    rk, rv = golden_sort(k, v)
-    assert np.array_equal(np.asarray(ok), rk)
-    assert np.array_equal(np.asarray(ov), rv)
+                           check_order=check_order, descending=descending)
+            ref = golden_sort(k, count=count, bit_count=bit_count,
+                              descending=descending)
+            assert np.array_equal(np.asarray(out), ref), cfg
 
 
 def test_input_validation():
+    # uint8 is outside the key-dtype surface (16-bit keys are supported)
     with pytest.raises(TypeError):
-        trs.sort(jnp.zeros(8, jnp.uint16))
+        trs.sort(jnp.zeros(8, jnp.uint8))
     with pytest.raises(ValueError):
         trs.sort(jnp.zeros((2, 4), jnp.uint32))
     with pytest.raises(ValueError):
@@ -262,191 +256,70 @@ def test_input_validation():
             fn()
 
 
-def test_transposed_lane_stage_path(rng, monkeypatch):
-    """Cover the compiled-mode transpose bracketing under interpret."""
-    from tpu_radix_sort.ops import bitonic
-
-    monkeypatch.setattr(bitonic, "_TEST_TRANSPOSE_IN_INTERPRET", True)
-    n = 2000
-    k = _rand_keys(rng, n, hi=300)
-    v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method="bitonic")
+@pytest.mark.parametrize("method", ["auto", "xla"])
+def test_methods_accepted(rng, method):
+    k = _rand_keys(rng, 500, hi=50)
+    v = np.arange(500, dtype=np.uint32)
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method=method)
     rk, rv = golden_sort(k, v)
     assert np.array_equal(np.asarray(ok), rk)
     assert np.array_equal(np.asarray(ov), rv)
 
 
-def test_fold2_stable_path(rng, monkeypatch):
-    """Byte-exactness of the USE_FOLD2_CE stable (key, rank) fast path
-    (round-3 VERDICT item 6 candidate — see ops/bitonic.py). Covers
-    multi-tile merge rounds, duplicates (tie-break correctness), descending
-    (direction folded into the rank too), masked bit_count, sub-counts, and
-    the transpose bracketing; flag default stays off until the on-chip A/B."""
-    from tpu_radix_sort.ops import bitonic
-
-    monkeypatch.setattr(bitonic, "USE_FOLD2_CE", True)
-    for transpose in (False, True):
-        monkeypatch.setattr(bitonic, "_TEST_TRANSPOSE_IN_INTERPRET", transpose)
-        for n, block_rows in ((900, None), (3000, 4)):
-            k = _rand_keys(rng, n, hi=50)  # heavy duplicates
-            v = np.arange(n, dtype=np.uint32)
-            kj, vj = jnp.asarray(k), jnp.asarray(v)
-            rk, rv = golden_sort(k, v)
-            # values_are_ranks=True + bit_count=32 is the 2-array (key,
-            # rank) assembly — the only one fold2 covers; ranks=False (a
-            # 3-array control) must be untouched by the flag
-            for ranks in (False, True):
-                ok, ov = trs.sort(kj, vj, method="bitonic",
-                                  block_rows=block_rows,
-                                  values_are_ranks=ranks)
-                np.testing.assert_array_equal(np.asarray(ok), rk,
-                                              err_msg=str((n, ranks)))
-                np.testing.assert_array_equal(np.asarray(ov), rv,
-                                              err_msg=str((n, ranks)))
-            okd, ovd = trs.sort(kj, vj, method="bitonic",
-                                block_rows=block_rows, descending=True,
-                                values_are_ranks=True)
-            rkd, rvd = golden_sort(k, v, descending=True)
-            np.testing.assert_array_equal(np.asarray(okd), rkd)
-            np.testing.assert_array_equal(np.asarray(ovd), rvd)
-            c = (2 * n) // 3
-            okc, ovc = trs.sort(kj, vj, method="bitonic", count=c,
-                                block_rows=block_rows, values_are_ranks=True)
-            rkc, rvc = golden_sort(k, v, count=c)
-            np.testing.assert_array_equal(np.asarray(okc), rkc)
-            np.testing.assert_array_equal(np.asarray(ovc), rvc)
+@pytest.mark.parametrize("method", ["bitonic", "radix"])
+def test_removed_methods_refused(method):
+    k = jnp.zeros(8, jnp.uint32)
+    for fn in (lambda: trs.sort(k, method=method),
+               lambda: trs.argsort(k, method=method),
+               lambda: trs.sort_batched(k.reshape(2, 4), method=method),
+               lambda: trs.sort_segments(k, jnp.asarray([0, 8]),
+                                         method=method)):
+        with pytest.raises(ValueError, match="method"):
+            fn()
 
 
-def test_fold3_stable_paths(rng, monkeypatch):
-    """Byte-exactness of the USE_FOLD3_CE folded fast path on >= 3-array
-    assemblies (generic (key, idx, value); masked 4-array; transposed),
-    incl. the 2-array control staying on USE_FOLD2_CE's gate."""
-    from tpu_radix_sort.ops import bitonic
-
-    monkeypatch.setattr(bitonic, "USE_FOLD3_CE", True)
-    for transpose in (False, True):
-        monkeypatch.setattr(bitonic, "_TEST_TRANSPOSE_IN_INTERPRET", transpose)
-        n = 1800
-        k = _rand_keys(rng, n, hi=40)  # heavy duplicates
-        v = np.arange(n, dtype=np.uint32)
-        kj, vj = jnp.asarray(k), jnp.asarray(v)
-        rk, rv = golden_sort(k, v)
-        ok, ov = trs.sort(kj, vj, method="bitonic", block_rows=4)
-        np.testing.assert_array_equal(np.asarray(ok), rk)
-        np.testing.assert_array_equal(np.asarray(ov), rv)
-        ok8, ov8 = trs.sort(kj, vj, method="bitonic", bit_count=8)
-        rk8, rv8 = golden_sort(k, v, bit_count=8)
-        np.testing.assert_array_equal(np.asarray(ok8), rk8)
-        np.testing.assert_array_equal(np.asarray(ov8), rv8)
-        okd, ovd = trs.sort(kj, vj, method="bitonic", descending=True)
-        rkd, rvd = golden_sort(k, v, descending=True)
-        np.testing.assert_array_equal(np.asarray(okd), rkd)
-        np.testing.assert_array_equal(np.asarray(ovd), rvd)
-
-
-def test_nonpow2_split_sort_matches_golden(rng, monkeypatch):
-    """The non-pow2 split path (prefix sort + remainder sort + one merge)
-    must be byte-exact vs golden across the feature surface. The threshold
-    is lowered so interpret-mode sizes exercise it; n is chosen with >= 33%
-    pad waste so the split actually activates."""
-    import jax
-
-    from tpu_radix_sort.ops import sort as sort_mod
-
-    monkeypatch.setattr(sort_mod, "SPLIT_MIN_N", 256)
-    # this test compiles ~25 fresh pipelines after ~90 tests' worth already
-    # live in-process; without the bracketing clears the accumulation ends
-    # in the XLA:CPU native segfault described in conftest.py
-    jax.clear_caches()
-    # 1324 recurses: 1024 + (256 + 44) — two split levels
-    for n in (300, 1040, 1324):
-        assert 3 * max(128, 1 << (n - 1).bit_length()) >= 4 * n  # split active
-        k = _rand_keys(rng, n, hi=max(2, n // 4))  # duplicates: stability
-        v = np.arange(n, dtype=np.uint32)
-        kj, vj = jnp.asarray(k), jnp.asarray(v)
-        rk, rv = golden_sort(k, v)
-        # keys-only
-        np.testing.assert_array_equal(
-            np.asarray(trs.sort(kj, method="bitonic")), rk)
-        # stable key+value, generic and rank payload
-        ok, ov = trs.sort(kj, vj, method="bitonic")
-        np.testing.assert_array_equal(np.asarray(ok), rk)
-        np.testing.assert_array_equal(np.asarray(ov), rv)
-        ok, ov = trs.sort(kj, vj, method="bitonic", values_are_ranks=True)
-        np.testing.assert_array_equal(np.asarray(ok), rk)
-        np.testing.assert_array_equal(np.asarray(ov), rv)
-        # masked bit_count + sub-count + descending + check_order
-        rk8, rv8 = golden_sort(k, v, bit_count=8)
-        ok8, ov8 = trs.sort(kj, vj, bit_count=8, method="bitonic")
-        np.testing.assert_array_equal(np.asarray(ok8), rk8)
-        np.testing.assert_array_equal(np.asarray(ov8), rv8)
-        c = (2 * n) // 3
-        np.testing.assert_array_equal(
-            np.asarray(trs.sort(kj, count=c, method="bitonic")),
-            golden_sort(k, count=c))
-        np.testing.assert_array_equal(
-            np.asarray(trs.sort(kj, descending=True, method="bitonic")),
-            golden_sort(k, descending=True))
-        np.testing.assert_array_equal(
-            np.asarray(trs.sort(kj, check_order=True, method="bitonic")), rk)
-    # real 0xFFFFFFFF keys must precede the split path's sentinel pads
-    n = 1040
-    k = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
-    k[rng.integers(0, n, 200)] = _rand_keys(rng, 200)
-    v = np.arange(n, dtype=np.uint32)
-    rk, rv = golden_sort(k, v)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method="bitonic",
-                      values_are_ranks=True)
-    np.testing.assert_array_equal(np.asarray(ok), rk)
-    np.testing.assert_array_equal(np.asarray(ov), rv)
-    jax.clear_caches()  # see note at the top of this test
-
-
-def test_values_are_ranks_byte_exact(rng):
-    """The rank-payload fast path (2-array engine) must be byte-identical to
-    the generic 3-array path under heavy key duplication — the case where a
-    wrong tie-break shows immediately."""
+def test_iota_payload_heavy_duplicates(rng):
+    """The argsort payload under heavy key duplication — the case where a
+    wrong tie-break shows immediately — with masking and a sub-count."""
     n = 5000
     k = _rand_keys(rng, n, hi=40)  # ~125 duplicates per key
     v = np.arange(n, dtype=np.uint32)
     kj, vj = jnp.asarray(k), jnp.asarray(v)
     rk, rv = golden_sort(k, v)
-    ok, ov = trs.sort(kj, vj, values_are_ranks=True)
+    ok, ov = trs.sort(kj, vj)
     assert np.array_equal(np.asarray(ok), rk)
     assert np.array_equal(np.asarray(ov), rv)
     # masked bit_count (full key rides as an extra payload)
     rk8, rv8 = golden_sort(k, v, bit_count=8)
-    ok8, ov8 = trs.sort(kj, vj, bit_count=8, values_are_ranks=True)
+    ok8, ov8 = trs.sort(kj, vj, bit_count=8)
     assert np.array_equal(np.asarray(ok8), rk8)
     assert np.array_equal(np.asarray(ov8), rv8)
     # sub-count sort: suffix untouched, prefix stable
     c = 3000
     rkc, rvc = golden_sort(k, v, count=c)
-    okc, ovc = trs.sort(kj, vj, count=c, values_are_ranks=True)
+    okc, ovc = trs.sort(kj, vj, count=c)
     assert np.array_equal(np.asarray(okc), rkc)
     assert np.array_equal(np.asarray(ovc), rvc)
 
 
-def test_values_are_ranks_descending(rng):
+def test_iota_payload_descending(rng):
     n = 2048
     k = _rand_keys(rng, n, hi=30)
     v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), descending=True,
-                      values_are_ranks=True)
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), descending=True)
     # stable descending golden: argsort of flipped keys
     order = np.argsort(0xFFFFFFFF - k.astype(np.uint64), kind="stable")
     assert np.array_equal(np.asarray(ok), k[order])
     assert np.array_equal(np.asarray(ov), v[order])
 
 
-def test_values_are_ranks_max_keys(rng):
-    """Real elements with key 0xFFFFFFFF must still precede the sentinel
-    padding (pad tie-break is 0xFFFFFFFF; real ranks are < count)."""
-    n = 1000  # pads to 1024: 24 sentinels behind 0xFFFFFFFF keys
+def test_max_keys_with_payload(rng):
+    """Real elements with key 0xFFFFFFFF keep their stable order."""
+    n = 1000
     k = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
     k[rng.integers(0, n, 200)] = _rand_keys(rng, 200)
     v = np.arange(n, dtype=np.uint32)
-    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), values_are_ranks=True)
+    ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v))
     rk, rv = golden_sort(k, v)
     assert np.array_equal(np.asarray(ok), rk)
     assert np.array_equal(np.asarray(ov), rv)

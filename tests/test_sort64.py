@@ -1,9 +1,8 @@
 """64-bit key sorts (uint64 / int64 / float64) vs the golden oracle.
 
 Extension past the reference (32-bit-only buffers, `src/shaders/RadixSort.ts`):
-`ops/sort64.py` runs 64-bit keys as (hi, lo) u32 columns through the same
-engines via the bitonic engine's lexicographic column tuples
-(`ops/bitonic.py _lex_lt`). Requires jax x64 mode for the input dtype —
+`ops/sort64.py` runs 64-bit keys as (hi, lo) u32 columns sorted with
+`lax.sort(num_keys=2)`. Requires jax x64 mode for the input dtype —
 enabled module-scoped here, with cache clears so no 32-bit test's compiled
 pipelines leak across the mode switch.
 """
@@ -41,9 +40,9 @@ def _u64_keys(rng, n, dup_hi=True):
 
 
 def test_u64_keys_only(rng):
-    for n, br in ((500, None), (3000, 4)):
+    for n in (500, 3000):
         k = _u64_keys(rng, n)
-        out = trs.sort(jnp.asarray(k), block_rows=br)
+        out = trs.sort(jnp.asarray(k))
         assert out.dtype == jnp.uint64
         np.testing.assert_array_equal(np.asarray(out), golden_sort(k))
 
@@ -56,10 +55,15 @@ def test_u64_key_value_generic_and_ranks(rng):
     v = np.arange(n, dtype=np.uint32)
     kj, vj = jnp.asarray(k), jnp.asarray(v)
     rk, rv = golden_sort(k, v)
-    for ranks in (False, True):
-        ok, ov = trs.sort(kj, vj, values_are_ranks=ranks)
-        np.testing.assert_array_equal(np.asarray(ok), rk, err_msg=str(ranks))
-        np.testing.assert_array_equal(np.asarray(ov), rv, err_msg=str(ranks))
+    ok, ov = trs.sort(kj, vj)
+    np.testing.assert_array_equal(np.asarray(ok), rk)
+    np.testing.assert_array_equal(np.asarray(ov), rv)
+    # a generic (non-iota) payload co-moves the same way
+    pay = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    okp, ovp = trs.sort(kj, jnp.asarray(pay))
+    rkp, rvp = golden_sort(k, pay)
+    np.testing.assert_array_equal(np.asarray(okp), rkp)
+    np.testing.assert_array_equal(np.asarray(ovp), rvp)
 
 
 def test_u64_bit_counts_descending_count(rng):
@@ -100,7 +104,7 @@ def test_u64_engines_agree(rng):
     v = np.arange(n, dtype=np.uint32)
     kj, vj = jnp.asarray(k), jnp.asarray(v)
     rk, rv = golden_sort(k, v)
-    for m in ("xla", "radix"):
+    for m in ("auto", "xla"):
         ok, ov = trs.sort(kj, vj, method=m)
         np.testing.assert_array_equal(np.asarray(ok), rk, err_msg=m)
         np.testing.assert_array_equal(np.asarray(ov), rv, err_msg=m)
@@ -121,13 +125,13 @@ def test_u64_check_order_gate_fires(rng, monkeypatch):
     out = trs.sort(jnp.asarray(k), check_order=True)
     np.testing.assert_array_equal(np.asarray(out), ks)  # unsorted: sorts
 
-    real = sort64._engine_sort64
+    real = sort64.engine_sort
 
     def poisoned(key_cols, payloads, **kw):
         kc, ps = real(key_cols, payloads, **kw)
         return tuple(c ^ jnp.uint32(0xDEADBEEF) for c in kc), ps
 
-    monkeypatch.setattr(sort64, "_engine_sort64", poisoned)
+    monkeypatch.setattr(sort64, "engine_sort", poisoned)
     # _sort_jit64 is jitted: drop the cached clean pipeline so the poisoned
     # engine actually enters the new trace (and clear again afterwards so
     # no poisoned executable leaks into later tests)
@@ -157,9 +161,9 @@ def test_u64_order_checks(rng):
         k, bit_count=4)
 
 
-def test_u64_order_check_pallas_path(rng):
-    # above PALLAS_MIN_ELEMENTS: the two-column streaming kernel runs,
-    # incl. the non-multiple sentinel pad and the block-boundary carry
+def test_u64_order_check_large(rng):
+    # a large, non-power-of-two two-column check, incl. an inversion past
+    # the fast window
     m = 300_000
     big = np.sort(rng.integers(0, 2**64, m, dtype=np.uint64))
     assert bool(trs.is_sorted(jnp.asarray(big)))
@@ -168,12 +172,8 @@ def test_u64_order_check_pallas_path(rng):
         np.sum(big[:-1] > big[1:]))
 
 
-def test_u64_fold2_fast_path(rng, monkeypatch):
-    """u64 keys-only is a 2-column (hi, lo) tuple — the same fast path as
-    the stable (key, rank) fold2; byte-exactness with the flag forced on."""
-    from tpu_radix_sort.ops import bitonic
-
-    monkeypatch.setattr(bitonic, "USE_FOLD2_CE", True)
+def test_u64_keys_only_both_directions(rng):
+    """u64 keys-only is a 2-column (hi, lo) sort with no payload."""
     n = 900
     k = _u64_keys(rng, n)
     np.testing.assert_array_equal(
@@ -218,8 +218,8 @@ def test_u64_mesh_sort(rng):
     c = 3000
     np.testing.assert_array_equal(
         np.asarray(trs.sort(kj, mesh=mesh, count=c)), golden_sort(k, count=c))
-    # the exchange splitter bisects the joined u64 domain (round-4 VERDICT
-    # item 1): wide keys now ride the one-crossing strategy too
+    # the exchange splitter bisects the joined u64 domain: wide keys ride
+    # the one-crossing strategy too
     ok_x, ov_x = trs.sort(kj, vj, mesh=mesh, method="exchange")
     np.testing.assert_array_equal(np.asarray(ok_x), rk)
     np.testing.assert_array_equal(np.asarray(ov_x), rv)
@@ -262,8 +262,6 @@ def test_u64_breadth_sweep(rng):
         descending = rng.random() < 0.2
         check_order = rng.random() < 0.2
         with_values = rng.random() < 0.5
-        ranks = with_values and rng.random() < 0.5
-        block_rows = int(rng.choice([4, 16, 64])) if rng.random() < 0.4 else None
         total_order = bit_count == 64 and rng.random() < 0.2
 
         if dtype == "uint64":
@@ -276,11 +274,10 @@ def test_u64_breadth_sweep(rng):
             k = ((rng.random(n) - 0.5) * 1e12)
 
         cfg = (i, n, count, bit_count, dtype, descending, check_order,
-               with_values, ranks, block_rows, total_order)
+               with_values, total_order)
         kj = jnp.asarray(k)
         kwargs = dict(count=count, bit_count=bit_count, descending=descending,
-                      check_order=check_order, block_rows=block_rows,
-                      total_order=total_order)
+                      check_order=check_order, total_order=total_order)
 
         if total_order:
             # exact numeric-order oracle: monotone map to u64, complement
@@ -305,8 +302,7 @@ def test_u64_breadth_sweep(rng):
 
         if with_values:
             v = np.arange(n, dtype=np.uint32)
-            ok, ov = trs.sort(kj, jnp.asarray(v), values_are_ranks=ranks,
-                              **kwargs)
+            ok, ov = trs.sort(kj, jnp.asarray(v), **kwargs)
             if total_order:
                 rv = v.copy()
                 rv[:count] = v[:count][order]
@@ -324,16 +320,10 @@ def test_u64_breadth_sweep(rng):
     jax.clear_caches()
 
 
-def test_u64_nonpow2_split_matches_golden(rng, monkeypatch):
-    """The non-pow2 split path (prefix + remainder + one merge) for 64-bit
-    keys — threshold lowered so interpret-mode sizes exercise it; sizes
-    chosen with >= 33% pad waste so the split actually activates."""
-    from tpu_radix_sort.ops import sort as sort_mod
-
-    monkeypatch.setattr(sort_mod, "SPLIT_MIN_N", 256)
-    jax.clear_caches()
+def test_u64_nonpow2_matches_golden(rng):
+    """Non-power-of-two lengths of 64-bit keys, with and without payloads,
+    masked and sub-counted."""
     for n in (300, 1040, 1324):
-        assert 3 * max(128, 1 << (n - 1).bit_length()) >= 4 * n
         k = rng.integers(0, 2**64, n, dtype=np.uint64)
         k[: n // 3] = (k[: n // 3] & np.uint64(0xFF)) | (
             np.uint64(5) << np.uint64(32))  # duplicates: stability load
@@ -341,15 +331,14 @@ def test_u64_nonpow2_split_matches_golden(rng, monkeypatch):
         kj, vj = jnp.asarray(k), jnp.asarray(v)
         rk, rv = golden_sort(k, v)
         np.testing.assert_array_equal(np.asarray(trs.sort(kj)), rk)
-        for ranks in (False, True):
-            ok, ov = trs.sort(kj, vj, values_are_ranks=ranks)
-            np.testing.assert_array_equal(np.asarray(ok), rk, err_msg=str(n))
-            np.testing.assert_array_equal(np.asarray(ov), rv, err_msg=str(n))
+        ok, ov = trs.sort(kj, vj)
+        np.testing.assert_array_equal(np.asarray(ok), rk, err_msg=str(n))
+        np.testing.assert_array_equal(np.asarray(ov), rv, err_msg=str(n))
         c = (2 * n) // 3
         np.testing.assert_array_equal(
             np.asarray(trs.sort(kj, count=c, bit_count=40)),
             golden_sort(k, count=c, bit_count=40))
-    # real all-ones u64 keys must precede the split path's sentinel pads
+    # real all-ones u64 keys keep their stable order
     n = 1040
     k = np.full(n, 0xFFFFFFFFFFFFFFFF, dtype=np.uint64)
     k[rng.integers(0, n, 200)] = rng.integers(0, 2**64, 200, dtype=np.uint64)
@@ -358,7 +347,6 @@ def test_u64_nonpow2_split_matches_golden(rng, monkeypatch):
     ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v))
     np.testing.assert_array_equal(np.asarray(ok), rk)
     np.testing.assert_array_equal(np.asarray(ov), rv)
-    jax.clear_caches()
 
 
 def test_u64_batched(rng):
@@ -428,7 +416,7 @@ def test_u64_validation():
         trs.sort(k, bit_count=65)
     with pytest.raises(ValueError):
         trs.sort(k, bit_count=6)
-    # 64-bit values are supported (round-4 VERDICT item 7, test_values64);
+    # 64-bit values are supported (test_values64);
     # sub-4-byte payloads are not a payload width
     with pytest.raises(TypeError):
         trs.sort(k, jnp.zeros(8, jnp.float16))
@@ -437,8 +425,7 @@ def test_u64_validation():
 
 
 def test_u64_check_flags(rng):
-    """total_order / descending on the 64-bit check view (round-4 VERDICT
-    item 2): negative float64 / int64 and descending output verify under
+    """total_order / descending on the 64-bit check view: negative float64 / int64 and descending output verify under
     the same flags the sort ran with."""
     n = 3000
     f = rng.standard_normal(n).astype(np.float64)

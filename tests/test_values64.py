@@ -38,7 +38,7 @@ def _keys_with_dups(rng, n):
 
 
 @pytest.mark.parametrize("vdtype", [np.uint64, np.int64, np.float64])
-def test_flat_sort_wide_values_all_engines(rng, vdtype):
+def test_flat_sort_wide_values_all_methods(rng, vdtype):
     n = 2048
     k = _keys_with_dups(rng, n)
     if vdtype == np.float64:
@@ -46,7 +46,7 @@ def test_flat_sort_wide_values_all_engines(rng, vdtype):
     else:
         v = rng.integers(0, 2**62, n, dtype=np.uint64).astype(vdtype)
     rk, rv = golden_sort(k, v)
-    for m in ("bitonic", "radix", "xla"):
+    for m in ("auto", "xla"):
         ok, ov = trs.sort(jnp.asarray(k), jnp.asarray(v), method=m)
         np.testing.assert_array_equal(np.asarray(ok), rk)
         np.testing.assert_array_equal(np.asarray(ov), rv)
@@ -91,7 +91,7 @@ def test_batched_and_segmented_wide_values(rng):
     kb = _keys_with_dups(rng, B * nr).reshape(B, nr)
     vb = rng.integers(0, 2**64, (B, nr), dtype=np.uint64)
     order = np.argsort(kb, axis=1, kind="stable")
-    for m in ("bitonic", "xla"):
+    for m in ("auto", "xla"):
         okb, ovb = trs.sort_batched(jnp.asarray(kb), jnp.asarray(vb), method=m)
         np.testing.assert_array_equal(
             np.asarray(okb), np.take_along_axis(kb, order, 1))
@@ -106,7 +106,7 @@ def test_batched_and_segmented_wide_values(rng):
         lo, hi = offs[i], offs[i + 1]
         o = np.argsort(kf[lo:hi], kind="stable")
         ek[lo:hi], ev[lo:hi] = kf[lo:hi][o], vf[lo:hi][o]
-    for m in ("bitonic", "xla"):
+    for m in ("auto", "xla"):
         oks, ovs = trs.sort_segments(
             jnp.asarray(kf), jnp.asarray(offs), jnp.asarray(vf), method=m)
         np.testing.assert_array_equal(np.asarray(oks), ek)
@@ -130,12 +130,12 @@ def test_wide_value_error_paths(rng):
     n = 256
     k = _keys_with_dups(rng, n)
     v = rng.integers(0, 2**64, n, dtype=np.uint64)
-    # the rank contract is a single u32 column: wide ranks must refuse
+    # values must match the keys' shape
     with pytest.raises(ValueError):
-        trs.sort(jnp.asarray(k), jnp.asarray(v), values_are_ranks=True)
+        trs.sort(jnp.asarray(k), jnp.asarray(v)[:-1])
     with pytest.raises(ValueError):
         trs.sort_batched(jnp.asarray(k).reshape(2, -1),
-                         jnp.asarray(v).reshape(2, -1), values_are_ranks=True)
+                         jnp.asarray(v).reshape(4, -1))
     # 2-byte values are not a payload width
     with pytest.raises(TypeError):
         trs.sort(jnp.asarray(k), jnp.asarray(np.zeros(n, np.float16)))

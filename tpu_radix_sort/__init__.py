@@ -1,11 +1,12 @@
-"""tpu_radix_sort — a TPU-native sort-execution engine.
+"""tpu_radix_sort — a sort-execution engine in JAX.
 
-Brand-new framework with the full capability surface of the WebGPU 4-way
-radix sort reference (MatthieuLepers/WebGPU-Radix-Sort), re-designed for
-TPU hardware: Pallas compare-exchange / radix kernels on the VPU, streaming
-prefix scans, `lax.cond` early exits, and `shard_map` radix exchange across
+The full capability surface of the WebGPU 4-way radix sort reference
+(MatthieuLepers/WebGPU-Radix-Sort) as JAX operations: stable key and
+key+value sorts through `jax.lax.sort` (which XLA lowers to CUB's radix
+sort on a GPU where the operand tuple allows), prefix scans, `lax.cond`
+early exits, batched and segmented sorts, and `shard_map` sorts across
 device meshes. See SURVEY.md for the reference analysis and DESIGN.md for
-the measured hardware facts behind the architecture.
+the architecture.
 """
 from .api import (
     PrefixSumKernel,

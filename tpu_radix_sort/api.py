@@ -38,13 +38,13 @@ class RadixSortKernel:
 
     Options mirror the reference constructor
     (`RadixSortBufferKernel.ts:14-23`): count, bit_count, check_order; plus
-    TPU-native knobs (method, block_rows, total_order, and `mesh=` — one
-    constructed instance as a distributed pipeline over a
+    the extensions (method, total_order, descending, key/value dtypes, and
+    `mesh=` — one constructed instance as a distributed pipeline over a
     `jax.sharding.Mesh` axis, see ops/sort.py routing). `local_shuffle` and
     `avoid_bank_conflicts` are accepted for API compatibility and ignored:
     both are WGSL micro-optimizations that the reference itself measures as
-    no-ops and ships disabled (`README.md:124-129,162-168`); the TPU engine
-    has no shared-memory banks and always uses blocked layouts.
+    no-ops and ships disabled (`README.md:124-129,162-168`); the engine here
+    is XLA's sort, which lays out its own shared memory.
     """
 
     def __init__(
@@ -56,11 +56,9 @@ class RadixSortKernel:
         check_order: bool = False,
         total_order: bool = False,
         descending: bool = False,
-        values_are_ranks: bool = False,
         key_dtype=jnp.uint32,
         value_dtype=jnp.uint32,
         method: str = "auto",
-        block_rows=None,
         local_shuffle: bool = False,
         avoid_bank_conflicts: bool = False,
         mesh=None,
@@ -93,9 +91,7 @@ class RadixSortKernel:
             check_order=self.check_order,
             total_order=total_order,
             descending=descending,
-            values_are_ranks=values_are_ranks,
             method=method,
-            block_rows=block_rows,
             # mesh= makes this one constructed instance a DISTRIBUTED
             # pipeline (routing in ops/sort.py) — same construct-once/
             # dispatch-many contract, over a jax.sharding.Mesh axis
@@ -149,7 +145,7 @@ class RadixSortPackedKernel:
     """
 
     def __init__(self, *, count: int, bit_count: int = 32, check_order: bool = False,
-                 method: str = "auto", block_rows=None):
+                 method: str = "auto"):
         common.validate_bit_count(bit_count)
         self.count = int(count)
         self._fn = jax.jit(
@@ -159,7 +155,6 @@ class RadixSortPackedKernel:
                 bit_count=bit_count,
                 check_order=check_order,
                 method=method,
-                block_rows=block_rows,
             )
         )
 
@@ -177,10 +172,10 @@ class PrefixSumKernel:
     exclusive, in place over the first `count` elements. Like the sort
     kernel, `avoid_bank_conflicts` is accepted for API compatibility and
     ignored (the reference ships it disabled and measures no effect,
-    `README.md:162-168`; VMEM has no shared-memory banks).
+    `README.md:162-168`).
     """
 
-    def __init__(self, *, count: int, inclusive: bool = False, block_rows=None,
+    def __init__(self, *, count: int, inclusive: bool = False,
                  avoid_bank_conflicts: bool = False, mesh=None,
                  axis_name: str = "x"):
         del avoid_bank_conflicts  # accepted, ignored (see docstring)
@@ -190,7 +185,6 @@ class PrefixSumKernel:
                 scan_ops.prefix_sum,
                 count=self.count,
                 inclusive=inclusive,
-                block_rows=block_rows,
                 # mesh= = distributed scan (parallel/scan.py), same
                 # construct-once contract as RadixSortKernel(mesh=)
                 mesh=mesh,

@@ -91,11 +91,15 @@ def golden_sort(
     count: int | None = None,
     bit_count: int | None = None,
     descending: bool = False,
+    total_order: bool = False,
 ):
     """Reference-semantics sort. Returns (keys, values) or keys if values is None.
 
     `descending` is this repo's extension (the reference is ascending-only):
     stable descending = stable ascending of the bit-flipped masked key.
+    `total_order` (extension) orders signed and negative keys numerically:
+    keys map through the same monotone bijection as the sort's
+    `total_order=True` before masking.
     """
     keys = np.asarray(keys)
     if keys.ndim != 1:
@@ -114,15 +118,18 @@ def golden_sort(
         raise ValueError(f"bit_count must be a multiple of 4 in [4, {hi_bit}]")
 
     if wide:
-        u = _bit_pattern_u64(keys)
+        u = _total_order_u64(keys) if total_order else _bit_pattern_u64(keys)
         mask = (
             np.uint64(0xFFFFFFFFFFFFFFFF)
             if bit_count == 64
             else np.uint64((1 << bit_count) - 1)
         )
     else:
-        u = (_bit_pattern_u16_widened(keys) if hi_bit == 16
-             else _bit_pattern_u32(keys))
+        if hi_bit == 16:
+            u = (_total_order_u16_widened(keys) if total_order
+                 else _bit_pattern_u16_widened(keys))
+        else:
+            u = _total_order_u32(keys) if total_order else _bit_pattern_u32(keys)
         mask = (
             np.uint32(0xFFFFFFFF)
             if bit_count == 32
@@ -155,9 +162,12 @@ def golden_prefix_sum(items: np.ndarray, *, count: int | None = None) -> np.ndar
     items = np.asarray(items)
     n = items.shape[0] if count is None else int(count)
     out = items.copy()
-    seg = items[:n].astype(np.uint64)
-    excl = np.concatenate([[0], np.cumsum(seg)[:-1]]).astype(np.uint64) & np.uint64(0xFFFFFFFF)
-    out[:n] = excl.astype(items.dtype)
+    # u32 cumsum wraps mod 2^32 exactly like the reference's u32 adds (no
+    # float promotion anywhere, so sums past 2^53 stay exact)
+    inc = np.cumsum(items[:n].view(np.uint32), dtype=np.uint32)
+    excl = np.zeros(n, np.uint32)
+    excl[1:] = inc[:-1]
+    out[:n] = excl.view(items.dtype)
     return out
 
 

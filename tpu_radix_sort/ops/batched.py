@@ -1,23 +1,13 @@
 """Batched (per-row) sorts: independently sort each row of a 2-D array.
 
 Extension past the reference (one flat buffer per sort,
-``src/kernels/radix-sort/AbstractRadixSortKernel.ts``). The engine is the
-*row-local* bitonic network (`ops/bitonic.py sort_rows_padded`): rows pad
-to a pow2 length, the standard rounds run up to half the row length
-(strides never cross a row boundary because the row length divides every
-round's run), and one final merge round is forced uniformly ascending —
-O(log^2 row) + log(row) stages, the per-row optimum, with NO row-id data
-moved at all. Keys-only batched sorts therefore ride the same min/max
-fast path as flat keys-only sorts.
-
-(The obvious alternative — a composite (row_id, key) lexicographic sort of
-the flattened array — costs O(log^2 (B*n)) stages plus an extra moved
-column; it was this module's first implementation and the row-local
-network strictly dominates it.)
+``src/kernels/radix-sort/AbstractRadixSortKernel.ts``). The engine is
+`jax.lax.sort` along the last axis, which sorts every row independently
+with no row-id column.
 
 Stability per row, `descending`, `total_order`, masked `bit_count`, value
 payloads, and every key dtype (incl. 64-bit under jax x64) carry over from
-the flat sort. `method='xla'` maps to `jax.lax.sort`'s native batching.
+the flat sort.
 """
 from __future__ import annotations
 
@@ -26,7 +16,8 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from . import bitonic, common
+from . import common
+from .sort import validate_method
 
 
 def sort_batched(
@@ -36,22 +27,18 @@ def sort_batched(
     bit_count: int | None = None,
     descending: bool = False,
     total_order: bool = False,
-    values_are_ranks: bool = False,
     method: str = "auto",
-    block_rows=None,
-    interpret=None,
     mesh=None,
     axis_name: str = "x",
 ):
     """Sort each row of a (B, n) key array independently (stable, ascending
-    by default), co-permuting an optional same-shape 32-bit `values` array.
+    by default), co-permuting an optional same-shape 4- or 8-byte `values`
+    array.
 
-    Same key-dtype surface as :func:`sort` (uint32/float32/int32 and the
-    64-bit dtypes under jax x64); `bit_count` masks per key word like the
-    flat sort. `values_are_ranks=True` promises each ROW of `values`,
-    viewed as u32, is strictly increasing with every element < 0xFFFFFFFF
-    (e.g. a per-row iota — the argsort payload): the payload then doubles
-    as the stability tie-break. Returns keys or (keys, values), same shape.
+    Same key-dtype surface as :func:`sort` (uint32/float32/int32, the
+    16-bit dtypes, and the 64-bit dtypes under jax x64); `bit_count` masks
+    per key word like the flat sort. Returns keys or (keys, values), same
+    shape.
 
     ``mesh=`` shards the BATCH dimension across the mesh axis — rows are
     independent, so this is the collective-free case of the parallel
@@ -78,16 +65,7 @@ def sort_batched(
         if values.shape != keys.shape:
             raise ValueError("values must match keys shape")
         common.validate_value_dtype(values)
-        if values_are_ranks and values.dtype.itemsize != 4:
-            raise ValueError(
-                "values_are_ranks requires a 32-bit value dtype (the rank "
-                "contract is a single u32 column)"
-            )
-    if method not in ("auto", "bitonic", "xla"):
-        raise ValueError(
-            "sort_batched supports method in ('auto', 'bitonic', 'xla'); "
-            f"got {method!r}"
-        )
+    validate_method(method)
     if mesh is not None:
         from ..parallel.batched import mesh_sort_batched
 
@@ -95,31 +73,19 @@ def sort_batched(
             keys, values,
             mesh=mesh, axis_name=axis_name, bit_count=bit_count,
             descending=descending, total_order=total_order,
-            values_are_ranks=values_are_ranks and values is not None,
-            method="bitonic" if method == "auto" else method,
-            block_rows=block_rows, interpret=interpret,
         )
-    if interpret is None:
-        interpret = common.default_interpret()
     return _sort_batched_jit(
         keys,
         values,
         bit_count=bit_count,
         descending=descending,
         total_order=total_order,
-        values_are_ranks=values_are_ranks and values is not None,
-        method="bitonic" if method == "auto" else method,
-        block_rows=block_rows,
-        interpret=interpret,
     )
 
 
 def argsort_batched(keys, **kwargs):
-    """Per-row stable ranks: positions each row's elements sort to.
-
-    The per-row iota payload satisfies the batched rank contract, so this
-    always takes the rank-payload path — no separate index column.
-    """
+    """Per-row stable argsort: the original column index of each element
+    of every sorted row."""
     common.guard_64bit_downcast(keys)
     keys = jnp.asarray(keys)
     if keys.ndim != 2:
@@ -127,66 +93,34 @@ def argsort_batched(keys, **kwargs):
     ranks = jnp.broadcast_to(
         jnp.arange(keys.shape[1], dtype=jnp.uint32), keys.shape
     )
-    kwargs.setdefault("values_are_ranks", True)
     return sort_batched(keys, ranks, **kwargs)[1]
 
 
-def _pad_rows(col_flat, B, n, row_pad, fill):
-    """(B*n,) column -> (B*row_pad,) with each row padded with `fill`."""
-    if row_pad == n:
-        return col_flat
-    c = col_flat.reshape(B, n)
-    pad = jnp.full((B, row_pad - n), fill, dtype=col_flat.dtype)
-    return jnp.concatenate([c, pad], axis=1).reshape(B * row_pad)
-
-
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "bit_count",
-        "descending",
-        "total_order",
-        "values_are_ranks",
-        "method",
-        "block_rows",
-        "interpret",
-    ),
+    jax.jit, static_argnames=("bit_count", "descending", "total_order"),
 )
-def _sort_batched_jit(
-    keys,
-    values,
-    *,
-    bit_count,
-    descending,
-    total_order,
-    values_are_ranks,
-    method,
-    block_rows,
-    interpret,
-):
+def _sort_batched_jit(keys, values, *, bit_count, descending, total_order):
     B, n = keys.shape
-    wide = common.is_64bit_key_dtype(keys.dtype)
     if B * n == 0 or n <= 1:
         return keys if values is None else (keys, values)
 
-    flat = keys.reshape(B * n)
-    if wide:
+    if common.is_64bit_key_dtype(keys.dtype):
         if total_order:
-            full_cols = common.to_total_order_u64_cols(flat)
+            full_cols = common.to_total_order_u64_cols(keys)
         else:
-            full_cols = common.to_sortable_u64_cols(flat)
+            full_cols = common.to_sortable_u64_cols(keys)
         masks = common.bit_mask_cols(bit_count)
         masked = bit_count < 64
-        lo_only = bit_count <= 32
         mcols = tuple(c & m for c, m in zip(full_cols, masks))
         if descending:
             mcols = tuple(c ^ m for c, m in zip(mcols, masks))
-        mk_cols = (mcols[1],) if lo_only else mcols
+        # bit_count <= 32: the masked hi column is all-zero — drop it
+        mk_cols = (mcols[1],) if bit_count <= 32 else mcols
     else:
         if total_order:
-            full_cols = (common.to_total_order_u32(flat),)
+            full_cols = (common.to_total_order_u32(keys),)
         else:
-            full_cols = (common.to_sortable_u32(flat),)
+            full_cols = (common.to_sortable_u32(keys),)
         masks = (common.bit_mask(bit_count),)
         masked = bit_count < common.native_key_bits(keys.dtype)
         mk = full_cols[0] & masks[0]
@@ -196,81 +130,17 @@ def _sort_batched_jit(
 
     carry_full = masked or descending
     stable = carry_full or values is not None
+    vcols = common.values_to_u32_cols(values) if values is not None else ()
+    payloads = (*(full_cols if carry_full else ()), *vcols)
+    out = jax.lax.sort(
+        (*mk_cols, *payloads), num_keys=len(mk_cols), is_stable=stable,
+        dimension=1,
+    )
+    nk = len(mk_cols)
+    # unmasked ascending: the key columns ARE the full-key columns
+    sorted_cols = out[nk: nk + len(full_cols)] if carry_full else out[:nk]
 
-    vcols_2d = common.values_to_u32_cols(values) if values is not None else ()
-
-    if method == "xla":
-        # lax.sort is natively batched (sorts along the last axis per row)
-        ks = tuple(c.reshape(B, n) for c in mk_cols)
-        payloads = []
-        if carry_full:
-            payloads += [c.reshape(B, n) for c in full_cols]
-        payloads.extend(vcols_2d)
-        out = jax.lax.sort(
-            (*ks, *payloads), num_keys=len(ks), is_stable=stable, dimension=1,
-        )
-        sorted_cols = (
-            out[len(ks): len(ks) + len(full_cols)] if carry_full
-            else out[: len(full_cols)]
-        )
-        sorted_cols = tuple(c.reshape(B * n) for c in sorted_cols)
-        v_sorted = (
-            tuple(c.reshape(B * n) for c in out[len(out) - len(vcols_2d):])
-            if values is not None else None
-        )
-    else:
-        # row-local bitonic network: pad each row to a pow2 (>= LANES so
-        # the flat length is always a multiple of the lane width), sort
-        # every row_pad-aligned run independently, slice rows back
-        row_pad = max(bitonic.LANES, common.next_pow2(n))
-        npad = B * row_pad
-        SENT = common.SENTINEL_U32
-        cols = [_pad_rows(c, B, n, row_pad, SENT) for c in mk_cols]
-        n_keys = len(mk_cols)
-        rank_tie = values_are_ranks and values is not None
-        vcols_flat = tuple(c.reshape(B * n) for c in vcols_2d)
-        if stable:
-            if rank_tie:
-                # per-row increasing ranks < SENTINEL: valid tie column
-                # (padded with SENTINEL so real max-key elements precede
-                # each row's pads; pad tuples are byte-identical); rank
-                # values are 4-byte only (validated upstream)
-                cols.append(_pad_rows(vcols_flat[0], B, n, row_pad, SENT))
-            else:
-                # global iota: within each row it is the original position
-                cols.append(jnp.arange(npad, dtype=jnp.uint32))
-            n_keys += 1
-        if carry_full:
-            cols += [_pad_rows(c, B, n, row_pad, SENT) for c in full_cols]
-        if values is not None and not rank_tie:
-            cols += [
-                _pad_rows(c, B, n, row_pad, jnp.uint32(0)) for c in vcols_flat
-            ]
-
-        out = bitonic.sort_rows_padded(
-            tuple(cols), row_len=row_pad, stable=stable,
-            block_rows=block_rows, interpret=interpret, n_keys=n_keys,
-        )
-
-        def unpad(c):
-            return c.reshape(B, row_pad)[:, :n].reshape(B * n)
-
-        base = len(mk_cols) + (1 if stable else 0)
-        if carry_full:
-            sorted_cols = tuple(unpad(c) for c in out[base: base + len(full_cols)])
-        else:
-            # not masked/descending: the masked cols ARE the full cols
-            sorted_cols = tuple(unpad(c) for c in out[: len(full_cols)])
-        if values is None:
-            v_sorted = None
-        elif rank_tie:
-            v_sorted = (unpad(out[len(mk_cols)]),)
-        else:
-            v_sorted = tuple(
-                unpad(c) for c in out[len(out) - len(vcols_flat):]
-            )
-
-    if wide:
+    if len(sorted_cols) == 2:
         s_hi, s_lo = sorted_cols
         if total_order:
             out_keys = common.from_total_order_u64_cols(s_hi, s_lo, keys.dtype)
@@ -282,10 +152,7 @@ def _sort_batched_jit(
             out_keys = common.from_total_order_u32(u, keys.dtype)
         else:
             out_keys = common.from_sortable_u32(u, keys.dtype)
-    out_keys = out_keys.reshape(B, n)
     if values is None:
         return out_keys
-    out_values = common.values_from_u32_cols(
-        v_sorted, values.dtype
-    ).reshape(B, n)
-    return out_keys, out_values
+    v_sorted = out[len(out) - len(vcols):]
+    return out_keys, common.values_from_u32_cols(v_sorted, values.dtype)

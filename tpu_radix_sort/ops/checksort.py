@@ -7,176 +7,49 @@ the first `4 * threads` elements that gates the "full" check over the rest,
 with results steering GPU-side indirect-dispatch records
 (`src/shaders/CheckSort.ts:115-145`, `AbstractRadixSortKernel.ts:249-276`).
 
-On TPU the control flow inverts cleanly: the disorder reduction is a fused
-compare+reduce in a single streaming Pallas kernel (one HBM-bound pass —
-replacing the reference's multi-level reduction tree, whose levels exist
-only because GPU workgroups cannot communicate), and "zeroing the dispatch
-record" becomes `lax.cond` over the whole sort computation. The fast/full
-split is kept: the fast slice's verdict gates whether the full reduction
-runs at all. Small inputs use the plain XLA reduction.
+Here the disorder reduction is one XLA compare-and-sum over the adjacent
+pairs (the reference's multi-level reduction tree exists only because GPU
+workgroups cannot communicate within a dispatch; XLA fuses the compare into
+the reduction), and "zeroing the dispatch record" becomes `lax.cond` over
+the whole sort computation. The fast/full split is kept: the fast slice's
+verdict gates whether the full reduction runs at all.
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from . import common
-
-LANES = 128
-BLOCK_ROWS = 2048
-# Below this, the XLA reduction is faster than a kernel launch.
-PALLAS_MIN_ELEMENTS = BLOCK_ROWS * LANES
 
 # Matches the reference's fast-check window: the first min(count, 4*threads)
 # elements with the default 256-thread workgroup (AbstractRadixSortKernel.ts:139).
 FAST_CHECK_ELEMENTS = 1024
 
 
-def _disorder_kernel(x_ref, o_ref, acc, *, rows):
-    """Per block: inversions within the block + the block-boundary pair.
-
-    The element after each position i is at i+1 = a row-major left-shift by
-    one: lane-roll by 1 with the wrapped lane pulling from the next row.
-    The final lane of the final row is masked (its successor is the next
-    block's first element, counted by that block's boundary term).
-    """
-    b = pl.program_id(0)
-
-    @pl.when(b == 0)
-    def _():
-        acc[0] = jnp.uint32(0)
-
-    x = x_ref[:]
-    nxt = pltpu.roll(x, common.roll_shift_i32(LANES - 1), axis=1)
-    nxt_rows = pltpu.roll(nxt, common.roll_shift_i32(rows - 1), axis=0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    rid = jax.lax.broadcasted_iota(jnp.int32, x.shape, 0)
-    nxt = jnp.where(lane < LANES - 1, nxt, nxt_rows)
-    valid = (lane < LANES - 1) | (rid < rows - 1)
-    bad = (x > nxt) & valid
-    # block boundary: last element vs next block's first (next grid step's
-    # x[0,0]) is handled by comparing this block's first element against the
-    # carried previous-block last element.
-    prev_last = acc[1]
-    boundary = jnp.where(
-        b > 0, (prev_last > x[0, 0]).astype(jnp.uint32), jnp.uint32(0)
-    )
-    # f32 mask count (see common.sum_scalar_u32: integer to-scalar sums die
-    # under x64 at Mosaic lowering; f32 is exact below 2^24)
-    acc[0] = acc[0] + common.sum_scalar_u32(bad) + boundary
-    acc[1] = x[rows - 1, LANES - 1]
-    o_ref[0] = acc[0]
-
-
-def _disorder_pallas(u2d, *, interpret):
-    rows = u2d.shape[0]
-    block = min(rows, BLOCK_ROWS)
-    with common.i32_trace():
-        return pl.pallas_call(
-            functools.partial(_disorder_kernel, rows=block),
-            grid=(rows // block,),
-            in_specs=[pl.BlockSpec((block, LANES), lambda b: (b, common.IM0))],
-            out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-            out_shape=jax.ShapeDtypeStruct((1,), jnp.uint32),
-            scratch_shapes=[pltpu.SMEM((2,), jnp.uint32)],
-            interpret=interpret,
-        )(u2d)[0]
-
-
-def _disorder_kernel2(a_ref, b_ref, o_ref, acc, *, rows):
-    """Two-column (lexicographic) variant of :func:`_disorder_kernel` —
-    64-bit keys travel as (hi, lo) u32 columns (ops/sort64.py), and an
-    inversion is `(hi, lo)[i] > (hi, lo)[i+1]` on the pair."""
-    blk = pl.program_id(0)
-
-    @pl.when(blk == 0)
-    def _():
-        acc[0] = jnp.uint32(0)
-
-    a = a_ref[:]
-    b = b_ref[:]
-
-    def nxt(x):
-        n1 = pltpu.roll(x, common.roll_shift_i32(LANES - 1), axis=1)
-        return n1, pltpu.roll(n1, common.roll_shift_i32(rows - 1), axis=0)
-
-    na, na_rows = nxt(a)
-    nb, nb_rows = nxt(b)
-    lane = jax.lax.broadcasted_iota(jnp.int32, a.shape, 1)
-    rid = jax.lax.broadcasted_iota(jnp.int32, a.shape, 0)
-    na = jnp.where(lane < LANES - 1, na, na_rows)
-    nb = jnp.where(lane < LANES - 1, nb, nb_rows)
-    valid = (lane < LANES - 1) | (rid < rows - 1)
-    bad = ((a > na) | ((a == na) & (b > nb))) & valid
-    prev_a, prev_b = acc[1], acc[2]
-    first_gt = (prev_a > a[0, 0]) | ((prev_a == a[0, 0]) & (prev_b > b[0, 0]))
-    boundary = jnp.where(blk > 0, first_gt.astype(jnp.uint32), jnp.uint32(0))
-    acc[0] = acc[0] + common.sum_scalar_u32(bad) + boundary
-    acc[1] = a[rows - 1, LANES - 1]
-    acc[2] = b[rows - 1, LANES - 1]
-    o_ref[0] = acc[0]
-
-
-def _disorder_pallas2(a2d, b2d, *, interpret):
-    rows = a2d.shape[0]
-    block = min(rows, BLOCK_ROWS)
-    spec = pl.BlockSpec((block, LANES), lambda b: (b, common.IM0))
-    with common.i32_trace():
-        return pl.pallas_call(
-            functools.partial(_disorder_kernel2, rows=block),
-            grid=(rows // block,),
-            in_specs=[spec, spec],
-            out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-            out_shape=jax.ShapeDtypeStruct((1,), jnp.uint32),
-            scratch_shapes=[pltpu.SMEM((3,), jnp.uint32)],
-            interpret=interpret,
-        )(a2d, b2d)[0]
-
-
-def disorder_count_cols(cols, *, interpret=None) -> jax.Array:
+def disorder_count_cols(cols) -> jax.Array:
     """Adjacent inversions of the lexicographic column tuple (1 or 2 u32
-    columns — the plain and 64-bit key views). Pallas for large inputs,
-    XLA reduction below the kernel-launch floor."""
-    if len(cols) == 1:
-        return disorder_count(cols[0], interpret=interpret)
-    a, b = cols
-    n = a.shape[0]
+    columns — the plain and 64-bit key views)."""
+    n = cols[0].shape[0]
     if n < 2:
         return jnp.uint32(0)
-    if interpret is None:
-        interpret = common.default_interpret()
-    if n >= PALLAS_MIN_ELEMENTS:
-        n_pad = common.round_up(n, BLOCK_ROWS * LANES)
-        a = common.pad_to(a, n_pad, common.SENTINEL_U32)
-        b = common.pad_to(b, n_pad, common.SENTINEL_U32)
-        return _disorder_pallas2(
-            a.reshape(-1, LANES), b.reshape(-1, LANES), interpret=interpret
-        )
-    gt = (a[:-1] > a[1:]) | ((a[:-1] == a[1:]) & (b[:-1] > b[1:]))
+    gt = common.lex_lt(tuple(c[1:] for c in cols), tuple(c[:-1] for c in cols))
     return jnp.sum(gt.astype(jnp.uint32), dtype=jnp.uint32)
 
 
-def is_sorted_cols(cols, *, interpret=None) -> jax.Array:
+def is_sorted_cols(cols) -> jax.Array:
     """Fast-gated order check on a lexicographic column tuple (the 64-bit
     analogue of :func:`is_sorted`; same fast-window-then-rest structure —
     one implementation for any column count)."""
     n = cols[0].shape[0]
     f = min(n, FAST_CHECK_ELEMENTS)
-    fast_ok = disorder_count_cols(
-        tuple(c[:f] for c in cols), interpret=interpret
-    ) == 0
+    fast_ok = disorder_count_cols(tuple(c[:f] for c in cols)) == 0
     if f >= n:
         return fast_ok
     # include the boundary pair by starting at f - 1
     return jax.lax.cond(
         fast_ok,
         lambda: disorder_count_cols(
-            tuple(jax.lax.slice(c, (f - 1,), (n,)) for c in cols),
-            interpret=interpret,
+            tuple(jax.lax.slice(c, (f - 1,), (n,)) for c in cols)
         ) == 0,
         lambda: jnp.bool_(False),
     )
@@ -192,7 +65,7 @@ def _as_check_key(u: jax.Array, bit_count: int, *, total_order=False,
     `bit_count` bits, XOR-flipped when checking `descending=True` output —
     the reference's check kernels compare the same storage words the sort
     kernels order by (`src/shaders/CheckSort.ts:102-113`); these flags keep
-    that contract for every option the sort accepts (round-4 VERDICT #2).
+    that contract for every option the sort accepts.
     """
     u = jnp.asarray(u)
     if total_order:
@@ -227,7 +100,7 @@ def _as_check_key_cols(u: jax.Array, bit_count: int, *, total_order=False,
 
 def disorder_count(
     u: jax.Array, *, count=None, bit_count: int | None = None,
-    total_order: bool = False, descending: bool = False, interpret=None,
+    total_order: bool = False, descending: bool = False,
     mesh=None, axis_name: str = "x",
 ) -> jax.Array:
     """Number of adjacent inversions in the first `count` keys (0 == sorted).
@@ -240,9 +113,8 @@ def disorder_count(
     key view (pass the same flags the sort ran with) — the check always
     compares the same words the sort ordered by.
 
-    Large inputs run the streaming Pallas reduction (the reference's
-    `check_sort` kernel, `src/shaders/CheckSort.ts:70-113`, collapsed to one
-    pass); small ones use the XLA reduction. ``mesh=`` runs it across a
+    One fused compare-and-sum pass (the reference's `check_sort` kernel,
+    `src/shaders/CheckSort.ts:70-113`). ``mesh=`` runs it across a
     `jax.sharding.Mesh` axis (per-shard reductions + one ppermute + one
     psum, `parallel/check.py`).
     """
@@ -252,7 +124,7 @@ def disorder_count(
         return mesh_disorder_count(
             u, mesh=mesh, axis_name=axis_name, count=count,
             bit_count=bit_count, total_order=total_order,
-            descending=descending, interpret=interpret,
+            descending=descending,
         )
     common.guard_64bit_downcast(u)
     u = jnp.asarray(u)
@@ -268,7 +140,7 @@ def disorder_count(
                     f"count {count} out of range for buffer of {u.shape[0]}"
                 )
             cols = tuple(c[:count] for c in cols)
-        return disorder_count_cols(cols, interpret=interpret)
+        return disorder_count_cols(cols)
     if bit_count is None:
         bit_count = common.native_key_bits(u.dtype)
     common.validate_bit_count_for(u.dtype, bit_count)
@@ -279,24 +151,12 @@ def disorder_count(
         if not (0 <= count <= u.shape[0]):
             raise ValueError(f"count {count} out of range for buffer of {u.shape[0]}")
         u = u[:count]
-    n = u.shape[0]
-    if n < 2:
-        return jnp.uint32(0)
-    if interpret is None:
-        interpret = common.default_interpret()
-    if n >= PALLAS_MIN_ELEMENTS:
-        # Arbitrary n: pad to a whole number of kernel blocks with max-valued
-        # sentinels — the last real element <= SENTINEL and the pads are all
-        # equal, so padding creates no new inversions and the count is exact.
-        n_pad = common.round_up(n, BLOCK_ROWS * LANES)
-        u = common.pad_to(u, n_pad, common.SENTINEL_U32)
-        return _disorder_pallas(u.reshape(-1, LANES), interpret=interpret)
-    return jnp.sum((u[:-1] > u[1:]).astype(jnp.uint32), dtype=jnp.uint32)
+    return disorder_count_cols((u,))
 
 
 def is_sorted(
     u: jax.Array, *, count=None, bit_count: int | None = None,
-    total_order: bool = False, descending: bool = False, interpret=None,
+    total_order: bool = False, descending: bool = False,
     mesh=None, axis_name: str = "x",
 ) -> jax.Array:
     """Fast-gated full order check, mirroring the reference's two-phase check.
@@ -319,7 +179,7 @@ def is_sorted(
         return mesh_is_sorted(
             u, mesh=mesh, axis_name=axis_name, count=count,
             bit_count=bit_count, total_order=total_order,
-            descending=descending, interpret=interpret,
+            descending=descending,
         )
     common.guard_64bit_downcast(u)
     u = jnp.asarray(u)
@@ -335,7 +195,7 @@ def is_sorted(
                     f"count {count} out of range for buffer of {u.shape[0]}"
                 )
             cols = tuple(c[:count] for c in cols)
-        return is_sorted_cols(cols, interpret=interpret)
+        return is_sorted_cols(cols)
     if bit_count is None:
         bit_count = common.native_key_bits(u.dtype)
     common.validate_bit_count_for(u.dtype, bit_count)
@@ -346,29 +206,15 @@ def is_sorted(
         if not (0 <= count <= u.shape[0]):
             raise ValueError(f"count {count} out of range for buffer of {u.shape[0]}")
         u = u[:count]
-    n = u.shape[0]
-    f = min(n, FAST_CHECK_ELEMENTS)
-    fast_ok = disorder_count(u[:f], interpret=interpret) == 0
-    if f >= n:
-        return fast_ok
-    # include the boundary pair by starting at f - 1
-    return jax.lax.cond(
-        fast_ok,
-        lambda: disorder_count(
-            jax.lax.slice(u, (f - 1,), (n,)), interpret=interpret
-        )
-        == 0,
-        lambda: jnp.bool_(False),
-    )
+    return is_sorted_cols((u,))
 
 
-def with_early_exit(u_sorted_check: jax.Array, passthrough, compute_fn,
-                    interpret=None):
+def with_early_exit(u_sorted_check: jax.Array, passthrough, compute_fn):
     """Return passthrough unchanged if already sorted, else compute_fn().
 
     `passthrough` and `compute_fn()` must be pytrees of identical structure.
     This is the `lax.cond` analogue of the reference zeroing every dispatch
     record when `is_sorted == 1` (src/shaders/CheckSort.ts:139-145).
     """
-    ok = is_sorted(u_sorted_check, interpret=interpret)
+    ok = is_sorted_cols((u_sorted_check,))
     return jax.lax.cond(ok, lambda: passthrough, compute_fn)

@@ -1,14 +1,12 @@
-"""Work-efficient exclusive prefix scan as a Pallas TPU kernel (public op).
+"""Exclusive prefix scan (public op).
 
 Reference counterpart: `PrefixSumKernel` — a recursive Blelloch scan that
 dispatches one reduce/downsweep pipeline per level plus add-back passes
-(`src/kernels/PrefixSumKernel.ts:45-133`, `src/shaders/PrefixSum.ts`). That
-recursion exists because GPU workgroups cannot communicate within a dispatch.
-A TPU Pallas grid executes *sequentially* on the core, so the idiomatic
-design is a one-pass streaming scan: each grid step computes its tile's scan
-in VMEM and accumulates a running carry in scratch — one HBM read + one HBM
-write total, strictly less traffic than the recursive scheme (which re-reads
-every level).
+(`src/kernels/PrefixSumKernel.ts:45-133`, `src/shaders/PrefixSum.ts`). Here
+a CUDA lowering runs the two-kernel reduce-then-scan of `ops/scan_triton.py`
+(Pallas on the Triton route), which measured faster than XLA's `cumsum` on
+an H100; every other platform runs `jnp.cumsum` in u32. Both wrap exactly
+like the reference's u32 adds.
 
 Semantics match the reference: exclusive scan, u32 wraparound addition, in
 place over the first `count` elements, the rest untouched
@@ -20,109 +18,27 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from . import common
-
-LANES = 128
-# Swept on chip at 16M (2026-08-16): 64 rows 3.47 ms, 128 1.96, 256 1.11,
-# 512 0.900, 1024 0.910, 2048 0.955, 4096 1.01, 8192 VMEM-OOM. 512 rows
-# (256 KB/tile) balances grid-step overhead against stage-temporary VMEM.
-#
-# 0.89 ms at 16M is COMPUTE-bound, not carry- or DMA-bound
-# (benchmarks/explore_scan.py, 2026-08-17): a pure copy through the same
-# grid/tile runs at 0.16-0.19 ms (698-822 GB/s, at roofline), AND-masks
-# instead of where-selects change nothing, a two-pass parallel scan (block
-# sums + add-back, no serial carry) is WORSE (1.01 ms: pays a second read),
-# and Mosaic has no native cumsum lowering. The log-shift Hillis-Steele
-# rounds are the operating point.
-DEFAULT_BLOCK_ROWS = 512
-# Interpret mode pays per grid step in Python; keep the old larger tile there.
-INTERPRET_BLOCK_ROWS = 2048
+from . import common, scan_triton
 
 
-def _masked_shift(x, s, axis):
-    """shifted[i] = x[i-s] along axis, zero-filled (not cyclic)."""
-    rolled = pltpu.roll(x, common.roll_shift_i32(s), axis=axis)
-    idx = jax.lax.broadcasted_iota(jnp.int32, x.shape, axis)
-    return jnp.where(idx >= s, rolled, jnp.uint32(0))
-
-
-def _cumsum_2d(x):
-    """Inclusive row-major cumsum of a (rows, 128) u32 tile, log-step shifts."""
-    rows = x.shape[0]
-    # within each row, along lanes
-    s = 1
-    while s < LANES:
-        x = x + _masked_shift(x, s, 1)
-        s *= 2
-    # rows' totals are now in lane 127; scan them down the sublane axis
-    own_tot = x[:, LANES - 1 :]  # (rows, 1)
-    row_tot = own_tot
-    s = 1
-    while s < rows:
-        row_tot = row_tot + _masked_shift(row_tot, s, 0)
-        s *= 2
-    # exclusive row prefix = inclusive - own total
-    return x + (row_tot - own_tot)
-
-
-def _scan_kernel(x_ref, o_ref, carry, *, inclusive):
-    pid = pl.program_id(0)
-
-    @pl.when(pid == 0)
-    def _():
-        carry[0] = jnp.uint32(0)
-
-    x = x_ref[:]
-    inc = _cumsum_2d(x)
-    c = carry[0]
-    if inclusive:
-        o_ref[:] = inc + c
-    else:
-        o_ref[:] = inc - x + c
-    carry[0] = c + inc[x.shape[0] - 1, LANES - 1]
-
-
-def scan_padded(x2d, *, inclusive=False, block_rows=None, interpret=None):
-    """Scan a (rows, 128) u32 array in row-major element order."""
-    if interpret is None:
-        interpret = common.default_interpret()
-    rows = x2d.shape[0]
-    block_rows = min(rows, block_rows or DEFAULT_BLOCK_ROWS)
-    assert rows % block_rows == 0
-    with common.i32_trace():
-        return pl.pallas_call(
-            functools.partial(_scan_kernel, inclusive=inclusive),
-            grid=(rows // block_rows,),
-            in_specs=[pl.BlockSpec((block_rows, LANES),
-                                   lambda i: (i, common.IM0))],
-            out_specs=pl.BlockSpec((block_rows, LANES),
-                                   lambda i: (i, common.IM0)),
-            out_shape=jax.ShapeDtypeStruct((rows, LANES), jnp.uint32),
-            scratch_shapes=[pltpu.SMEM((1,), jnp.uint32)],
-            interpret=interpret,
-        )(x2d)
-
-
-def prefix_sum(items, *, count=None, inclusive=False, block_rows=None,
-               interpret=None, mesh=None, axis_name="x"):
+def prefix_sum(items, *, count=None, inclusive=False, mesh=None,
+               axis_name="x"):
     """Exclusive (default) prefix sum of the first `count` elements, u32 wrap.
 
     Matches the reference's public PrefixSumKernel semantics: ascending
     exclusive scan, in place over the prefix, suffix untouched.
 
     ``mesh=`` runs the scan across a `jax.sharding.Mesh` axis (shard `items`
-    along `axis_name`): per-shard streaming Pallas scan + ONE tiny
-    all_gather of shard totals (`parallel/scan.py`).
+    along `axis_name`): per-shard scan + ONE tiny all_gather of shard
+    totals (`parallel/scan.py`).
     """
     if mesh is not None:
         from ..parallel.scan import mesh_prefix_sum
 
         return mesh_prefix_sum(
             items, mesh=mesh, axis_name=axis_name, count=count,
-            inclusive=inclusive, block_rows=block_rows, interpret=interpret,
+            inclusive=inclusive,
         )
     items = jnp.asarray(items)
     if items.dtype not in (jnp.uint32, jnp.int32):
@@ -135,38 +51,36 @@ def prefix_sum(items, *, count=None, inclusive=False, block_rows=None,
         raise ValueError(f"count {count} out of range")
     if count == 0:
         return items
-    if interpret is None:
-        interpret = common.default_interpret()
-    return _prefix_sum_jit(
-        items,
-        count=count,
-        inclusive=inclusive,
-        block_rows=block_rows,
-        interpret=interpret,
-    )
+    return _prefix_sum_jit(items, count=count, inclusive=inclusive)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("count", "inclusive", "block_rows", "interpret"),
-)
-def _prefix_sum_jit(items, *, count, inclusive, block_rows, interpret):
+def scan_xla(u, *, inclusive):
+    """u32 prefix sum through XLA's cumsum."""
+    inc = jnp.cumsum(u, dtype=jnp.uint32)
+    return inc if inclusive else inc - u
+
+
+def scan_gpu(u, *, inclusive, interpret=False):
+    """u32 prefix sum through the Triton kernels, zero-padded to whole
+    CHUNKs (zeros do not change a sum scan). `interpret` runs the kernels
+    in the Pallas interpreter (tests on the CPU)."""
+    n = u.shape[0]
+    padded = common.pad_to(u, common.round_up(n, scan_triton.CHUNK),
+                           jnp.uint32(0))
+    return scan_triton.scan_u32(padded, inclusive=inclusive,
+                                interpret=interpret)[:n]
+
+
+@functools.partial(jax.jit, static_argnames=("count", "inclusive"))
+def _prefix_sum_jit(items, *, count, inclusive):
     n = items.shape[0]
-    u = items[:count].astype(jnp.uint32)
-    block_rows = block_rows or (
-        INTERPRET_BLOCK_ROWS if interpret else DEFAULT_BLOCK_ROWS
+    u = jax.lax.bitcast_convert_type(items[:count], jnp.uint32)
+    out = jax.lax.platform_dependent(
+        u,
+        default=functools.partial(scan_xla, inclusive=inclusive),
+        cuda=functools.partial(scan_gpu, inclusive=inclusive),
     )
-    rows_needed = common.cdiv(count, LANES)
-    # pad to a whole number of blocks (zeros do not perturb a sum scan)
-    if rows_needed <= block_rows:
-        rows = max(8, common.next_pow2(rows_needed))
-        block = rows
-    else:
-        rows = common.round_up(rows_needed, block_rows)
-        block = block_rows
-    u = common.pad_to(u, rows * LANES, jnp.uint32(0)).reshape(rows, LANES)
-    out = scan_padded(u, inclusive=inclusive, block_rows=block, interpret=interpret)
-    out = out.reshape(rows * LANES)[:count].astype(items.dtype)
+    out = jax.lax.bitcast_convert_type(out, items.dtype)
     if count == n:
         return out
     return jnp.concatenate([out, items[count:]])

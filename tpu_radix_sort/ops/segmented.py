@@ -3,22 +3,18 @@ array (the ragged generalization of `ops/batched.py`).
 
 Extension past the reference. Segments are defined CSR-style by an
 `offsets` array (length S+1, offsets[0] == 0, offsets[-1] == n,
-nondecreasing; empty segments allowed). Unlike equal-length rows, ragged
-segments don't align to the row-local network's pow2 runs, so the engine
-here is a *composite key*: sorting the flat array by (segment_id, key)
+nondecreasing; empty segments allowed). Ragged segments cannot be a
+batch axis, so the engine here is a *composite key*: sorting the flat array by (segment_id, key)
 lexicographically sorts every segment in place — segment id dominates, so
 elements never leave their segment's contiguous range, and within it the
 order is by key. The segment id either packs into the same u32 word above
 the masked key bits (ceil(log2(S)) + bit_count <= 32: one key column, the
-cost of a flat masked sort) or rides as a dedicated column in the engine's
-lexicographic tuple (`ops/bitonic.py _lex_lt`, ~3 vector ops per stage).
+cost of a flat masked sort) or rides as a leading key column of
+`jax.lax.sort` (``num_keys`` = 2 or 3).
 
 `offsets` is a traced operand (one compiled pipeline serves every
 segmentation of the same shape); segment ids (and starts, for ranks) come
-from tiny boundary scatters + the streaming Pallas add-scan — NOT from
-`searchsorted`, whose gather lowering is element-serial on TPU (measured
-1.62 s of a 1.65 s segmented sort at 16M; `benchmarks/explore_segmented.py`
-and DESIGN.md "Segmented engine").
+from tiny boundary scatters and one `jnp.cumsum` each.
 """
 from __future__ import annotations
 
@@ -28,7 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from . import common
-from .sort64 import _pad_sort_cols
+from .sort import engine_sort, validate_method
 
 
 def sort_segments(
@@ -39,29 +35,22 @@ def sort_segments(
     bit_count: int | None = None,
     descending: bool = False,
     total_order: bool = False,
-    values_are_ranks: bool = False,
     method: str = "auto",
-    block_rows=None,
-    interpret=None,
     mesh=None,
     axis_name: str = "x",
 ):
     """Stable ascending sort of each segment `[offsets[i], offsets[i+1])`
-    of a flat 1-D key array, co-permuting optional 32-bit `values`.
+    of a flat 1-D key array, co-permuting optional 4- or 8-byte `values`.
 
     `offsets`: 1-D integer array, length S+1, with offsets[0] == 0,
     offsets[-1] == len(keys), nondecreasing (CSR segment boundaries; this
     contract is the caller's — offsets are traced, not validated).
     Same key-dtype/option surface as :func:`sort` (64-bit dtypes under
-    jax x64). `values_are_ranks=True` promises each SEGMENT of `values`,
-    viewed as u32, is strictly increasing with every element < 0xFFFFFFFF.
-    Returns keys or (keys, values), same shape.
+    jax x64). Returns keys or (keys, values), same shape.
 
     ``mesh=`` routes the same call across a mesh axis: segment ids come
     from the distributed prefix sum and the composite (seg, key, idx)
     tuple rides the compare-split network (`parallel/segmented.py`).
-    `values_are_ranks` is a single-chip comparison-engine contract and is
-    ignored distributed (the shard-local index tie-break is built in).
     """
     common.guard_64bit_downcast(keys)
     keys = jnp.asarray(keys)
@@ -89,11 +78,6 @@ def sort_segments(
         if values.shape != keys.shape:
             raise ValueError("values must match keys shape")
         common.validate_value_dtype(values)
-        if values_are_ranks and values.dtype.itemsize != 4:
-            raise ValueError(
-                "values_are_ranks requires a 32-bit value dtype (the rank "
-                "contract is a single u32 column)"
-            )
     if mesh is not None:
         if method not in ("auto", "mesh"):
             raise ValueError(
@@ -106,15 +90,9 @@ def sort_segments(
             keys, offsets, values,
             mesh=mesh, axis_name=axis_name, bit_count=bit_count,
             descending=descending, total_order=total_order,
-            make_ranks=False, block_rows=block_rows, interpret=interpret,
+            make_ranks=False,
         )
-    if method not in ("auto", "bitonic", "xla"):
-        raise ValueError(
-            "sort_segments supports method in ('auto', 'bitonic', 'xla'); "
-            f"got {method!r}"
-        )
-    if interpret is None:
-        interpret = common.default_interpret()
+    validate_method(method)
     return _sort_segments_jit(
         keys,
         offsets,
@@ -122,23 +100,18 @@ def sort_segments(
         bit_count=bit_count,
         descending=descending,
         total_order=total_order,
-        values_are_ranks=values_are_ranks and values is not None,
         make_ranks=False,
-        method="bitonic" if method == "auto" else method,
-        block_rows=block_rows,
-        interpret=interpret,
     )
 
 
 def argsort_segments(keys, offsets, *, bit_count=None, descending=False,
-                     total_order=False, method="auto", block_rows=None,
-                     interpret=None, mesh=None, axis_name="x"):
-    """Per-segment stable ranks (positions within the segment each element
-    sorts to). The position-minus-segment-start payload satisfies the
-    segmented rank contract; it is built INSIDE the jitted core from the
-    same boundary-scan that produces the segment ids (no offsets[seg]
-    gather — see `_segment_ids_and_starts`). ``mesh=`` routes distributed
-    (see :func:`sort_segments`)."""
+                     total_order=False, method="auto", mesh=None,
+                     axis_name="x"):
+    """Per-segment stable argsort: for each position of the segment-sorted
+    output, the original index of that element relative to its segment's
+    start. The position-minus-segment-start payload is built inside the
+    jitted core from the same boundary scan that produces the segment ids.
+    ``mesh=`` routes distributed (see :func:`sort_segments`)."""
     common.guard_64bit_downcast(keys)
     keys = jnp.asarray(keys)
     if keys.ndim != 1:
@@ -159,10 +132,9 @@ def argsort_segments(keys, offsets, *, bit_count=None, descending=False,
             keys, offsets, None,
             mesh=mesh, axis_name=axis_name, bit_count=bit_count,
             descending=descending, total_order=total_order,
-            make_ranks=True, block_rows=block_rows, interpret=interpret,
+            make_ranks=True,
         )[1]
-    if interpret is None:
-        interpret = common.default_interpret()
+    validate_method(method)
     return _sort_segments_jit(
         keys,
         offsets,
@@ -170,43 +142,30 @@ def argsort_segments(keys, offsets, *, bit_count=None, descending=False,
         bit_count=bit_count,
         descending=descending,
         total_order=total_order,
-        values_are_ranks=True,
         make_ranks=True,
-        method="bitonic" if method == "auto" else method,
-        block_rows=block_rows,
-        interpret=interpret,
     )[1]
 
 
-def _segment_ids_and_starts(offsets, n, *, interpret, need_starts):
-    """Element position -> (segment id, segment start) WITHOUT searchsorted.
+def segment_boundary_deltas(offsets, n, *, need_starts):
+    """Per-position increments whose inclusive prefix sums are the segment
+    id and, with `need_starts`, the segment start of every position.
 
-    `searchsorted(offsets, arange(n))` lowers to data-dependent gathers,
-    which are element-serial on TPU — measured 2026-08-19 at 16M/1024
-    segments it made the whole segmented sort 1.62 s when the sort network
-    itself costs ~30 ms (`benchmarks/explore_segmented.py`). Instead:
-    scatter tiny per-boundary records (S-1 elements) and run the streaming
-    Pallas add-scan (`ops/scan.py`, 0.9 ms at 16M):
-
-    - seg id:  +1 at each interior boundary, inclusive-scanned — the count
-      of boundaries <= j IS the segment id (coincident boundaries from
-      empty segments accumulate, advancing the id by their multiplicity).
+    - seg id: +1 at each interior boundary — the count of boundaries <= j
+      IS the segment id (coincident boundaries from empty segments
+      accumulate, advancing the id by their multiplicity).
     - seg start: +(offsets[i] - offsets[i-1]) at boundary i telescopes
-      under the scan to the largest boundary <= j, i.e. the segment start
-      (`ranks = pos - start` for argsort_segments).
-    """
-    from . import scan as scan_mod
+      under the scan to the largest boundary <= j, i.e. the segment start.
 
+    Only S-1 elements are scattered; the scan is the caller's (one chip:
+    `jnp.cumsum`; a mesh: the distributed prefix sum).
+    """
     b = offsets[1:-1].astype(jnp.int32)  # interior boundaries (S-1)
-    ind = jnp.zeros((n,), jnp.uint32).at[b].add(
-        jnp.uint32(1), mode="drop")
-    seg = scan_mod.prefix_sum(ind, inclusive=True, interpret=interpret)
+    ind = jnp.zeros((n,), jnp.uint32).at[b].add(jnp.uint32(1), mode="drop")
     if not need_starts:
-        return seg, None
+        return ind, None
     delta = (offsets[1:-1] - offsets[:-2]).astype(jnp.uint32)
     d = jnp.zeros((n,), jnp.uint32).at[b].add(delta, mode="drop")
-    starts = scan_mod.prefix_sum(d, inclusive=True, interpret=interpret)
-    return seg, starts
+    return ind, d
 
 
 @functools.partial(
@@ -215,11 +174,7 @@ def _segment_ids_and_starts(offsets, n, *, interpret, need_starts):
         "bit_count",
         "descending",
         "total_order",
-        "values_are_ranks",
         "make_ranks",
-        "method",
-        "block_rows",
-        "interpret",
     ),
 )
 def _sort_segments_jit(
@@ -230,11 +185,7 @@ def _sort_segments_jit(
     bit_count,
     descending,
     total_order,
-    values_are_ranks,
     make_ranks,
-    method,
-    block_rows,
-    interpret,
 ):
     n = keys.shape[0]
     S = offsets.shape[0] - 1
@@ -271,8 +222,8 @@ def _sort_segments_jit(
         # seg ids pack above the real key bits; 16-bit keys leave 16+ spare
         key_width = bit_count
 
-    seg, seg_starts = _segment_ids_and_starts(
-        offsets, n, interpret=interpret, need_starts=make_ranks)
+    ind, d = segment_boundary_deltas(offsets, n, need_starts=make_ranks)
+    seg = jnp.cumsum(ind, dtype=jnp.uint32)
     seg_bits = max(1, (S - 1).bit_length())
     packed = not wide and seg_bits + key_width <= 32
     if packed:
@@ -281,12 +232,10 @@ def _sort_segments_jit(
     else:
         key_cols = (seg, *mk_cols)
 
-    # per-segment ranks from the scanned segment starts (an offsets[seg]
-    # GATHER at n indices would be element-serial, like the searchsorted
-    # this path replaced)
     ranks = None
     if make_ranks:
-        ranks = jnp.arange(n, dtype=jnp.uint32) - seg_starts
+        ranks = jnp.arange(n, dtype=jnp.uint32) - jnp.cumsum(
+            d, dtype=jnp.uint32)
 
     carry_full = masked or descending
     stable = carry_full or have_values
@@ -299,56 +248,20 @@ def _sort_segments_jit(
     else:
         vcols = ()
 
-    if method == "xla":
-        payloads = list(full_cols) if carry_full else []
-        payloads.extend(vcols)
-        out = jax.lax.sort(
-            (*key_cols, *payloads), num_keys=len(key_cols), is_stable=stable,
-        )
-        base = len(key_cols)
-        if carry_full:
-            sorted_cols = out[base: base + len(full_cols)]
-        elif packed:
-            # unmasked ascending 16-bit keys pack under the seg id in ONE
-            # column with nothing carried: unmask the key bits back out
-            sorted_cols = (out[0] & common.bit_mask(key_width),)
-        else:
-            # unmasked ascending (masked/descending always carry), so the
-            # segment id is a separate leading column here
-            sorted_cols = out[1: 1 + len(full_cols)]
-        v_sorted = out[len(out) - len(vcols):] if have_values else None
+    payloads = list(full_cols) if carry_full else []
+    payloads.extend(vcols)
+    kc, out = engine_sort(key_cols, tuple(payloads), stable=stable)
+    if carry_full:
+        sorted_cols = out[: len(full_cols)]
+    elif packed:
+        # unmasked ascending keys packed under the seg id in ONE column
+        # with nothing carried: unmask the key bits back out
+        sorted_cols = (kc[0] & common.bit_mask(key_width),)
     else:
-        payloads = []
-        rank_tie = values_are_ranks and have_values
-        if carry_full:
-            payloads += list(full_cols)
-        if have_values and not rank_tie:
-            payloads.extend(vcols)
-        # rank ties are 4-byte only (validated upstream), so vcols[0] is
-        # the whole payload when it serves as the tie column
-        tie = vcols[0] if rank_tie else ("iota" if stable else None)
-        out = _pad_sort_cols(
-            key_cols, tie, payloads,
-            block_rows=block_rows, interpret=interpret,
-        )
-        nk = len(key_cols)
-        base = nk + (1 if stable else 0)
-        if carry_full:
-            sorted_cols = out[base: base + len(full_cols)]
-        elif packed:
-            # unmasked ascending 16-bit keys pack under the seg id in ONE
-            # column with nothing carried: unmask the key bits back out
-            sorted_cols = (out[0] & common.bit_mask(key_width),)
-        else:
-            # unmasked ascending (masked/descending always carry), so the
-            # segment id is a separate leading column here
-            sorted_cols = out[1: 1 + len(full_cols)]
-        if not have_values:
-            v_sorted = None
-        elif rank_tie:
-            v_sorted = (out[nk],)
-        else:
-            v_sorted = out[len(out) - len(vcols):]
+        # unmasked ascending with a separate leading segment column: the
+        # key column(s) after it ARE the full storage words
+        sorted_cols = kc[1:]
+    v_sorted = out[len(out) - len(vcols):] if have_values else None
 
     if wide:
         s_hi, s_lo = sorted_cols

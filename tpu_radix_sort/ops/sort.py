@@ -15,8 +15,10 @@ Reproduces the reference's full option surface
 - `check_order` early exit for nearly-sorted input (`README.md:131-158`)
 - stable, ascending (`README.md:94`)
 
-Engine selection (`method`): 'bitonic' (Pallas network engine, default on
-TPU), 'radix' (Pallas radix pipeline), 'xla' (`lax.sort` baseline).
+The engine is `jax.lax.sort` over u32 columns: the masked (possibly
+flipped) key, then payload columns. On a GPU, XLA hands a sort of one or
+two such columns to CUB's radix sort; wider column tuples run XLA's own
+sort kernel. `method` accepts 'auto' and 'xla', which are the same engine.
 """
 from __future__ import annotations
 
@@ -25,152 +27,29 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from . import bitonic, checksort, common
+from . import checksort, common
 
-_METHODS = ("auto", "bitonic", "radix", "xla")
+_METHODS = ("auto", "xla")
 # distributed strategies selectable through the same `method` knob once a
 # `mesh=` is passed (single entrypoint, like the reference's one kernel
 # class hiding its dispatch choices, `AbstractRadixSortKernel.ts:52-57`)
 _MESH_METHODS = ("auto", "mesh", "exchange")
 
-# The bitonic network needs a power-of-two length, so a plain pad can cost
-# up to 2x (measured: 65M keys-only 144 ms vs 64M 70 ms on v5e). When the
-# pad waste is >= 33% and the input is large enough to matter, sort the
-# largest power-of-two prefix and the remainder separately and combine
-# with ONE bitonic merge (log n stages instead of re-running the whole
-# log^2 n network on 2x the data): 65M drops to ~90 ms. Module constant so
-# tests can lower it to exercise the path at interpret-mode sizes.
-SPLIT_MIN_N = 1 << 21
 
-
-def _bitonic_pad_sort(mkeys, *, stable, use_rank, ordered, block_rows,
-                      interpret):
-    """Pad + sort through the bitonic engine, splitting non-pow2 inputs.
-
-    Returns the padded sorted column tuple (length next_pow2(n)), column
-    layout [masked key, tie (if stable), payloads...]. A range whose pow2
-    pad would waste >= 33% is sorted as prefix + remainder (recursively)
-    and combined with ONE `merge_padded` (log n stages); stability and
-    byte-exactness follow from uniqueness of the stable order: real
-    (key, tie) tuples are pairwise distinct and pads sort last.
-    """
-    def build(lo, hi, pad_len):
-        cols = [common.pad_to(mkeys[lo:hi], pad_len, common.SENTINEL_U32)]
-        if use_rank:
-            # pad tie = pad key = SENTINEL_U32: real max-key elements
-            # precede pads because their rank is < 0xFFFFFFFF (contract)
-            cols.append(
-                common.pad_to(ordered[0][lo:hi], pad_len, common.SENTINEL_U32)
-            )
-            tail = ordered[1:]
-        else:
-            if stable:
-                # global index tie-break, continued past the real data so
-                # pads sort after every real element of this part
-                cols.append(jnp.arange(lo, lo + pad_len, dtype=jnp.uint32))
-            tail = ordered
-        cols += [common.pad_to(p[lo:hi], pad_len, jnp.uint32(0)) for p in tail]
-        return tuple(cols)
-
-    def sorted_cols(lo, hi):
-        m = hi - lo
-        m_pad = max(bitonic.LANES, common.next_pow2(m))
-        a = m_pad // 2
-        if not (m >= SPLIT_MIN_N and 3 * m_pad >= 4 * m and a >= bitonic.LANES):
-            return bitonic.sort_padded(
-                build(lo, hi, m_pad), stable=stable, block_rows=block_rows,
-                interpret=interpret,
-            )
-        A = sorted_cols(lo, lo + a)  # exactly pow2: no pads inside
-        B = sorted_cols(lo + a, hi)  # length next_pow2(m - a) <= a
-        # extend B to length a with identical sentinel tuples (byte-no-op
-        # exchanges, see sort_padded's contract), reverse it so
-        # [A ascending ++ B descending] is a bitonic sequence, and merge.
-        ext = a - B[0].shape[0]
-        if ext:
-            fills = [common.SENTINEL_U32]
-            if use_rank or stable:
-                fills.append(common.SENTINEL_U32)
-            fills += [jnp.uint32(0)] * (len(B) - len(fills))
-            B = tuple(
-                jnp.concatenate([col, jnp.full((ext,), f, jnp.uint32)])
-                for col, f in zip(B, fills)
-            )
-        C = tuple(jnp.concatenate([x, y[::-1]]) for x, y in zip(A, B))
-        return bitonic.merge_padded(
-            C, stable=stable, block_rows=block_rows, interpret=interpret
-        )
-
-    return sorted_cols(0, mkeys.shape[0])
-
-
-def _resolve_method(method: str) -> str:
+def validate_method(method: str) -> None:
+    """Single-chip engine choice: 'auto' and 'xla' both run `lax.sort`."""
     if method not in _METHODS:
-        raise ValueError(f"method must be one of {_METHODS}, got {method}")
-    if method == "auto":
-        return "bitonic"
-    return method
+        raise ValueError(f"method must be one of {_METHODS}, got {method!r}")
 
 
-def _engine_sort(mkeys, payloads, *, stable, method, block_rows, interpret,
-                 key_bits=32, rank_payload=None, check_order=False):
-    """Sort by mkeys (stably if `stable`), co-permuting payloads.
+def engine_sort(key_cols, payloads, *, stable):
+    """Sort by the lexicographic u32 key-column tuple, co-permuting payloads.
 
-    mkeys: u32 (n,); payloads: tuple of u32 (n,). Returns (mkeys, payloads).
-    `key_bits`: number of meaningful low bits in mkeys (the radix engine
-    skips passes over masked-out bits, `AbstractRadixSortKernel.ts:94`).
-    `rank_payload`: optional index of a payload that is strictly increasing
-    as u32 with every element < 0xFFFFFFFF (an argsort iota). Such a payload
-    doubles as the stability tie-break, so the comparison engine can skip
-    its dedicated index array (3 arrays -> 2 for key+value: ~30% less
-    per-stage VPU work). The radix and xla engines are already payload-
-    minimal and ignore it.
+    Returns (sorted key columns, sorted payloads) as tuples.
     """
-    if method == "xla":
-        ops = jax.lax.sort((mkeys, *payloads), num_keys=1, is_stable=stable)
-        return ops[0], tuple(ops[1:])
-
-    if method == "radix":
-        from . import radix  # local import: optional engine
-
-        return radix.sort_u32(
-            mkeys,
-            payloads,
-            bit_count=key_bits,
-            block_rows=block_rows,
-            interpret=interpret,
-            # the radix engine owns the check_order semantics: the
-            # reference's mid-sort early exit (check every 2nd pass,
-            # AbstractRadixSortKernel.ts:257-261), which subsumes the
-            # up-front whole-pipeline gate used for the other engines
-            check_order=check_order,
-        )
-
-    # bitonic network engine: pad to pow2 multiple of 128 with sentinels;
-    # stability via an index tie-break key (or a rank payload serving as one).
-    n = mkeys.shape[0]
-    use_rank = stable and rank_payload is not None
-    if use_rank:
-        # the rank payload moves to the tie-break slot (arrs[1]); pads get
-        # 0xFFFFFFFF so real max-key elements still precede sentinels (pad
-        # tuples are fully identical, so their exchanges are byte no-ops)
-        ordered = [payloads[rank_payload]] + [
-            p for i, p in enumerate(payloads) if i != rank_payload
-        ]
-    else:
-        ordered = list(payloads)
-    out = _bitonic_pad_sort(
-        mkeys, stable=stable, use_rank=use_rank, ordered=ordered,
-        block_rows=block_rows, interpret=interpret,
-    )
-    k = out[0][:n]
-    if use_rank:
-        # ordered[] only moved the rank payload to the front; undo that
-        tail = list(out[2:])
-        tail.insert(rank_payload, out[1])
-    else:
-        tail = out[2:] if stable else out[1:]
-    return k, tuple(p[:n] for p in tail)
+    nk = len(key_cols)
+    out = jax.lax.sort((*key_cols, *payloads), num_keys=nk, is_stable=stable)
+    return tuple(out[:nk]), tuple(out[nk:])
 
 
 def sort(
@@ -182,10 +61,7 @@ def sort(
     check_order: bool = False,
     total_order: bool = False,
     descending: bool = False,
-    values_are_ranks: bool = False,
     method: str = "auto",
-    block_rows=None,
-    interpret=None,
     mesh=None,
     axis_name: str = "x",
 ):
@@ -204,24 +80,12 @@ def sort(
     dtype (8-byte rides as an (hi, lo) u32 column pair, x64 required).
 
     ``mesh=`` routes the same call across a `jax.sharding.Mesh` axis
-    (shard inputs along `axis_name` for the exchange to ride ICI):
-    `method='auto'` picks the exact-splitter radix exchange
-    (:func:`tpu_radix_sort.exchange_sort`, one data crossing per element)
-    for meshes larger than 4 devices and the compare-split network
-    (:func:`tpu_radix_sort.mesh_sort`, skew-immune fixed-size ppermutes)
-    for small ones — DESIGN.md "exchange volumes" table; `method='mesh'`
-    or `'exchange'` forces a strategy. `values_are_ranks` is a single-chip
-    comparison-engine contract and is ignored distributed (the shard-local
-    index tie-break is built in).
-
-    `values_are_ranks=True` promises that `values`, viewed as u32, is
-    strictly increasing with every element < 0xFFFFFFFF (e.g. the identity
-    iota of an argsort — the exact payload the reference's tests use,
-    `example/tests.ts:38`). The promise lets the comparison engine use the
-    payload itself as the stability tie-break instead of carrying a separate
-    index array (~30% faster key+value sorts); output is byte-identical.
-    If the promise is broken, equal-key runs come out ordered by value bits
-    instead of by original position.
+    (shard inputs along `axis_name`): `method='auto'` picks the
+    exact-splitter radix exchange (:func:`tpu_radix_sort.exchange_sort`,
+    one data crossing per element) for meshes larger than 4 devices and the
+    compare-split network (:func:`tpu_radix_sort.mesh_sort`, skew-immune
+    fixed-size ppermutes) for small ones; `method='mesh'` or `'exchange'`
+    forces a strategy.
     """
     if mesh is not None:
         if method not in _MESH_METHODS:
@@ -232,11 +96,9 @@ def sort(
         from .. import parallel  # local import: ops must not require parallel
 
         if method == "auto":
-            # crossing-volume heuristic (DESIGN.md): compare-split moves
-            # each element log2(D)(log2(D)+1)/2 times vs the exchange's 1,
-            # but wins at small D on pattern regularity; 4 is the break.
-            # Wide (64-bit) keys route by D exactly like narrow ones — the
-            # splitter bisects the joined u64 domain (round-4 VERDICT #1).
+            # crossing-volume heuristic: compare-split moves each element
+            # log2(D)(log2(D)+1)/2 times vs the exchange's once, but needs
+            # no splitter and no ragged collective; 4 is the break
             method = "mesh" if mesh.shape[axis_name] <= 4 else "exchange"
         fn = parallel.mesh_sort if method == "mesh" else parallel.exchange_sort
         return fn(
@@ -249,18 +111,17 @@ def sort(
             check_order=check_order,
             total_order=total_order,
             descending=descending,
-            block_rows=block_rows,
-            interpret=interpret,
         )
 
     common.guard_64bit_downcast(keys)
     keys = jnp.asarray(keys)
     if keys.ndim != 1:
         raise ValueError("keys must be 1-D")
+    validate_method(method)
     if common.is_64bit_key_dtype(keys.dtype):
         # 64-bit keys (extension; needs jax x64 mode so the dtype survives
-        # asarray): (hi, lo) u32 column pair through the same engines —
-        # ops/sort64.py. bit_count defaults to the full key width.
+        # asarray): (hi, lo) u32 column pair — ops/sort64.py. bit_count
+        # defaults to the full key width.
         from . import sort64
 
         return sort64.sort64(
@@ -271,17 +132,12 @@ def sort(
             check_order=check_order,
             total_order=total_order,
             descending=descending,
-            values_are_ranks=values_are_ranks,
-            method=method,
-            block_rows=block_rows,
-            interpret=interpret,
         )
     narrow16 = common.is_16bit_key_dtype(keys.dtype)
     if keys.dtype not in (jnp.uint32, jnp.float32, jnp.int32) and not narrow16:
         raise TypeError(f"unsupported key dtype {keys.dtype}")
     # 16-bit keys (u16/i16/f16/bf16) widen to their u16 bit pattern in a
-    # u32 lane; bit_count then defaults to (and caps at) 16, so the radix
-    # engine runs half the passes and masking stays within the real bits
+    # u32 lane; bit_count then defaults to (and caps at) 16
     native_bits = 16 if narrow16 else 32
     bit_count = native_bits if bit_count is None else bit_count
     common.validate_bit_count_for(keys.dtype, bit_count)
@@ -295,14 +151,6 @@ def sort(
         if values.ndim != 1 or values.shape[0] != n:
             raise ValueError("values must be 1-D with the same length as keys")
         common.validate_value_dtype(values)
-        if values_are_ranks and values.dtype.itemsize != 4:
-            raise ValueError(
-                "values_are_ranks requires a 32-bit value dtype (the rank "
-                "contract is a single u32 column)"
-            )
-    method = _resolve_method(method)
-    if interpret is None:
-        interpret = common.default_interpret()
 
     # the mask is a traced operand so every bit_count shares one compiled
     # pipeline (two traces total: masked vs full-width key)
@@ -315,13 +163,6 @@ def sort(
         check_order=check_order,
         total_order=total_order,
         descending=descending,
-        values_are_ranks=values_are_ranks and values is not None,
-        method=method,
-        block_rows=block_rows,
-        interpret=interpret,
-        # the radix engine's pass count is static per bit_count; the
-        # comparison engines share one compilation across bit_counts
-        key_bits=bit_count if method == "radix" else 32,
     )
     return out if values is not None else out[0]
 
@@ -334,11 +175,6 @@ def sort(
         "check_order",
         "total_order",
         "descending",
-        "values_are_ranks",
-        "method",
-        "block_rows",
-        "interpret",
-        "key_bits",
     ),
 )
 def _sort_jit(
@@ -351,11 +187,6 @@ def _sort_jit(
     check_order,
     total_order,
     descending=False,
-    values_are_ranks=False,
-    method,
-    block_rows,
-    interpret,
-    key_bits=32,
 ):
     """Jitted sort core; one compiled pipeline per static configuration.
 
@@ -376,34 +207,22 @@ def _sort_jit(
         # (flipped keys equal <=> keys equal, so stability carries over)
         mkeys = mkeys ^ mask
 
+    # a masked key loses its high bits, so the full key rides as a payload
     carry_full_key = masked
     stable = carry_full_key or values is not None
 
     payloads = []
     if carry_full_key:
         payloads.append(u_full)
-    rank_payload = None
     vcols = ()
     if values is not None:
         # 8-byte value dtypes ride as an (hi, lo) u32 column pair
         # (capability superset of the reference's u32 payload buffers)
         vcols = common.values_to_u32_cols(values[:count])
-        if values_are_ranks:
-            rank_payload = len(payloads)  # 4-byte only (validated upstream)
         payloads.extend(vcols)
 
     def do_sort():
-        mk, ps = _engine_sort(
-            mkeys,
-            tuple(payloads),
-            stable=stable,
-            method=method,
-            block_rows=block_rows,
-            interpret=interpret,
-            key_bits=key_bits,
-            rank_payload=rank_payload,
-            check_order=check_order and method == "radix",
-        )
+        (mk,), ps = engine_sort((mkeys,), tuple(payloads), stable=stable)
         ps = list(ps)
         if carry_full_key:
             u_sorted = ps.pop(0)
@@ -411,14 +230,10 @@ def _sort_jit(
             u_sorted = mk ^ mask if descending else mk
         return (u_sorted, *ps[: len(vcols)])
 
-    if check_order and method != "radix":
-        # comparison engines: up-front whole-pipeline gate. The radix
-        # engine instead checks mid-sort inside its pass loop (the
-        # reference's indirect-dispatch shape) — see _engine_sort above.
+    if check_order:
+        # up-front gate: already-sorted input skips the sort entirely
         passthrough = (u_full, *vcols)
-        result = checksort.with_early_exit(
-            mkeys, passthrough, do_sort, interpret=interpret
-        )
+        result = checksort.with_early_exit(mkeys, passthrough, do_sort)
     else:
         result = do_sort()
 
@@ -439,12 +254,10 @@ def _sort_jit(
 
 def argsort(keys, **kwargs):
     """Indices that stably sort keys (reference pattern: values = iota,
-    `example/tests.ts:38`). The iota payload provably satisfies the
-    `values_are_ranks` contract, so argsort always takes the 2-array path."""
+    `example/tests.ts:38`)."""
     common.guard_64bit_downcast(keys)
     keys = jnp.asarray(keys)
     idx = jnp.arange(keys.shape[0], dtype=jnp.uint32)
-    kwargs.setdefault("values_are_ranks", True)
     _, out = sort(keys, idx, **kwargs)
     return out
 
@@ -452,7 +265,7 @@ def argsort(keys, **kwargs):
 def sort_packed(packed, *, count=None, **kwargs):
     """Sort packed (key, value) records: array [..., 2] u32, key in [..., 0].
 
-    TPU-native equivalent of the reference's texture kernel, which sorts
+    Equivalent of the reference's texture kernel, which sorts
     rg32uint texels with key in .x and value in .y
     (`src/kernels/radix-sort/RadixSortTextureKernel.ts:27-29`): the capability
     is sorting packed records in an arbitrary 2-D layout; rows are linearized

@@ -3,23 +3,15 @@
 The reference is 32-bit-only (its WGSL buffers are ``array<u32>``,
 ``src/shaders/RadixSort.ts``); this module lifts the full option surface —
 sub-`count`, `bit_count` (here 4..64), `check_order`, `descending`,
-`total_order`, values, `values_are_ranks` — to 64-bit keys, reusing the
-same engines:
-
-- **bitonic** (default): a 64-bit key is two u32 *columns* (hi, lo) in the
-  engine's lexicographic compare tuple (`ops/bitonic.py _lex_lt`) — one
-  network, ~3 extra vector ops per stage instead of a second full sort.
-  64-bit lanes would halve VPU width on TPU; u32 columns keep it full.
-- **radix**: LSD composition — the stable u32 pipeline runs on the low
-  word, then on the high word (`ops/radix.py sort_u32` twice); stability
-  of each pass makes the composition order-correct.
-- **xla**: `jax.lax.sort` with ``num_keys=2`` over the column pair.
+`total_order`, values — to 64-bit keys. A 64-bit key is two u32 columns
+(hi, lo), sorted by `jax.lax.sort` with ``num_keys=2``; `bit_count <= 32`
+drops the all-zero masked hi column and sorts on lo alone.
 
 Input arrays must carry a real 64-bit dtype, which requires jax x64 mode
 (``jax.config.update("jax_enable_x64", True)``) — without it JAX silently
-downcasts at ``asarray`` time and the 32-bit path runs instead. All device
-code stays u32 either way. `check_order` gates the whole pipeline on a
-64-bit order check (`ops/checksort.py` two-column reduction).
+downcasts at ``asarray`` time and the 32-bit path runs instead.
+`check_order` gates the whole pipeline on a 64-bit order check
+(`ops/checksort.py` two-column reduction).
 """
 from __future__ import annotations
 
@@ -28,7 +20,8 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from . import bitonic, checksort, common
+from . import checksort, common
+from .sort import engine_sort
 
 
 def sort64(
@@ -40,10 +33,6 @@ def sort64(
     check_order: bool = False,
     total_order: bool = False,
     descending: bool = False,
-    values_are_ranks: bool = False,
-    method: str = "auto",
-    block_rows=None,
-    interpret=None,
 ):
     """64-bit-key `sort` (called from :func:`ops.sort.sort` on dtype).
 
@@ -61,16 +50,6 @@ def sort64(
         if values.ndim != 1 or values.shape[0] != n:
             raise ValueError("values must be 1-D with the same length as keys")
         common.validate_value_dtype(values)
-        if values_are_ranks and values.dtype.itemsize != 4:
-            raise ValueError(
-                "values_are_ranks requires a 32-bit value dtype (the rank "
-                "contract is a single u32 column)"
-            )
-    from .sort import _resolve_method
-
-    method = _resolve_method(method)
-    if interpret is None:
-        interpret = common.default_interpret()
     mask_hi, mask_lo = common.bit_mask_cols(bit_count)
     out = _sort_jit64(
         keys,
@@ -83,136 +62,8 @@ def sort64(
         check_order=check_order,
         total_order=total_order,
         descending=descending,
-        values_are_ranks=values_are_ranks and values is not None,
-        method=method,
-        block_rows=block_rows,
-        interpret=interpret,
-        key_bits=bit_count if method == "radix" else 64,
     )
     return out if values is not None else out[0]
-
-
-def _pad_sort_cols(key_cols, tie, payloads, *, block_rows, interpret):
-    """Pad every column to pow2 with sentinels and run one bitonic network,
-    splitting non-pow2 inputs like the 32-bit path.
-
-    key_cols (+ tie, when given) form the lexicographic compare tuple; pads
-    are all-SENTINEL tuples, which sort to the tail (with a tie column the
-    continued iota / rank contract keeps real max-key elements ahead; keys-
-    only, pads are byte-identical so their exchanges are no-ops — see
-    `bitonic.sort_padded`). A range whose pow2 pad would waste >= 33% is
-    sorted as prefix + remainder and combined with ONE `merge_padded` —
-    the same recursion as `ops/sort.py _bitonic_pad_sort`, sharing its
-    `SPLIT_MIN_N` threshold (read at call time so tests can lower it).
-    """
-    from . import sort as sort_mod
-
-    n = key_cols[0].shape[0]
-    stable = tie is not None
-    n_keys = len(key_cols) + (1 if stable else 0)
-
-    def build(lo, hi, pad_len):
-        cols = [
-            common.pad_to(c[lo:hi], pad_len, common.SENTINEL_U32)
-            for c in key_cols
-        ]
-        if stable:
-            if tie == "iota":
-                # global index tie-break, continued past the real data so
-                # pads sort after every real element of this part
-                cols.append(jnp.arange(lo, lo + pad_len, dtype=jnp.uint32))
-            else:  # rank payload serves as the tie column
-                cols.append(
-                    common.pad_to(tie[lo:hi], pad_len, common.SENTINEL_U32)
-                )
-        cols += [
-            common.pad_to(p[lo:hi], pad_len, jnp.uint32(0)) for p in payloads
-        ]
-        return tuple(cols)
-
-    def sorted_cols(lo, hi):
-        m = hi - lo
-        m_pad = max(bitonic.LANES, common.next_pow2(m))
-        a = m_pad // 2
-        if not (m >= sort_mod.SPLIT_MIN_N and 3 * m_pad >= 4 * m
-                and a >= bitonic.LANES):
-            return bitonic.sort_padded(
-                build(lo, hi, m_pad), stable=stable, block_rows=block_rows,
-                interpret=interpret, n_keys=n_keys,
-            )
-        A = sorted_cols(lo, lo + a)  # exactly pow2: no pads inside
-        B = sorted_cols(lo + a, hi)  # length next_pow2(m - a) <= a
-        # extend B to length a with identical sentinel tuples (byte-no-op
-        # exchanges), reverse it so [A asc ++ B desc] is bitonic, and merge
-        ext = a - B[0].shape[0]
-        if ext:
-            fills = [common.SENTINEL_U32] * n_keys
-            fills += [jnp.uint32(0)] * (len(B) - n_keys)
-            B = tuple(
-                jnp.concatenate([col, jnp.full((ext,), f, jnp.uint32)])
-                for col, f in zip(B, fills)
-            )
-        C = tuple(jnp.concatenate([x, y[::-1]]) for x, y in zip(A, B))
-        return bitonic.merge_padded(
-            C, stable=stable, block_rows=block_rows, interpret=interpret,
-            n_keys=n_keys,
-        )
-
-    return tuple(c[:n] for c in sorted_cols(0, n))
-
-
-def _engine_sort64(key_cols, payloads, *, stable, rank_payload, method,
-                   block_rows, interpret, key_bits):
-    """Sort by the lexicographic key-column tuple, co-permuting payloads."""
-    if method == "xla":
-        ops = jax.lax.sort(
-            (*key_cols, *payloads), num_keys=len(key_cols), is_stable=stable
-        )
-        return ops[: len(key_cols)], tuple(ops[len(key_cols):])
-
-    if method == "radix":
-        from . import radix
-
-        # LSD composition over 32-bit words: each sort_u32 pass is stable,
-        # so sorting by lo then by hi orders by (hi, lo). The masked pass
-        # widths follow the reference's skip-masked-bits rule per word.
-        lo_bits = min(32, key_bits)
-        hi_bits = key_bits - 32 if key_bits > 32 else 0
-        if len(key_cols) == 1:  # bit_count <= 32: hi column dropped upstream
-            lo, payloads = key_cols[0], tuple(payloads)
-            lo, payloads = radix.sort_u32(
-                lo, payloads, bit_count=lo_bits, block_rows=block_rows,
-                interpret=interpret,
-            )
-            return (lo,), payloads
-        hi, lo = key_cols
-        lo, carried = radix.sort_u32(
-            lo, (hi, *payloads), bit_count=lo_bits, block_rows=block_rows,
-            interpret=interpret,
-        )
-        hi, rest = carried[0], carried[1:]
-        if hi_bits:
-            hi, carried = radix.sort_u32(
-                hi, (lo, *rest), bit_count=hi_bits, block_rows=block_rows,
-                interpret=interpret,
-            )
-            lo, rest = carried[0], carried[1:]
-        return (hi, lo), tuple(rest)
-
-    # bitonic: tie column by contract — rank payload if promised, else iota
-    if stable and rank_payload is not None:
-        tie = payloads[rank_payload]
-        rest = [p for i, p in enumerate(payloads) if i != rank_payload]
-        out = _pad_sort_cols(key_cols, tie, rest,
-                             block_rows=block_rows, interpret=interpret)
-        nk = len(key_cols)
-        tie_out, tail = out[nk], list(out[nk + 1:])
-        tail.insert(rank_payload, tie_out)
-        return out[:nk], tuple(tail)
-    out = _pad_sort_cols(key_cols, "iota" if stable else None, payloads,
-                         block_rows=block_rows, interpret=interpret)
-    nk = len(key_cols) + (1 if stable else 0)
-    return out[: len(key_cols)], tuple(out[nk:])
 
 
 @functools.partial(
@@ -224,11 +75,6 @@ def _engine_sort64(key_cols, payloads, *, stable, rank_payload, method,
         "check_order",
         "total_order",
         "descending",
-        "values_are_ranks",
-        "method",
-        "block_rows",
-        "interpret",
-        "key_bits",
     ),
 )
 def _sort_jit64(
@@ -243,11 +89,6 @@ def _sort_jit64(
     check_order,
     total_order,
     descending,
-    values_are_ranks,
-    method,
-    block_rows,
-    interpret,
-    key_bits,
 ):
     """Jitted 64-bit sort core (column-pair analogue of `sort._sort_jit`)."""
     n = keys.shape[0]
@@ -264,7 +105,7 @@ def _sort_jit64(
         mk_hi = mk_hi ^ mask_hi
         mk_lo = mk_lo ^ mask_lo
     # bit_count <= 32: the masked hi column is all-zero — drop it from the
-    # compare tuple (same order, one fewer array through the network)
+    # compare tuple (same order, one fewer column to sort)
     key_cols = (mk_lo,) if lo_only else (mk_hi, mk_lo)
 
     carry_full_key = masked
@@ -273,25 +114,13 @@ def _sort_jit64(
     payloads = []
     if carry_full_key:
         payloads += [u_hi, u_lo]
-    rank_payload = None
     vcols = ()
     if values is not None:
         vcols = common.values_to_u32_cols(values[:count])
-        if values_are_ranks:
-            rank_payload = len(payloads)  # 4-byte only (validated upstream)
         payloads.extend(vcols)
 
     def do_sort():
-        kc, ps = _engine_sort64(
-            key_cols,
-            tuple(payloads),
-            stable=stable,
-            rank_payload=rank_payload,
-            method=method,
-            block_rows=block_rows,
-            interpret=interpret,
-            key_bits=key_bits,
-        )
+        kc, ps = engine_sort(key_cols, tuple(payloads), stable=stable)
         ps = list(ps)
         if carry_full_key:
             s_hi, s_lo = ps.pop(0), ps.pop(0)
@@ -303,9 +132,7 @@ def _sort_jit64(
 
     if check_order:
         passthrough = (u_hi, u_lo, *vcols)
-        ok = checksort.is_sorted_cols(
-            (mk_hi, mk_lo) if not lo_only else (mk_lo,), interpret=interpret
-        )
+        ok = checksort.is_sorted_cols(key_cols)
         result = jax.lax.cond(ok, lambda: passthrough, do_sort)
     else:
         result = do_sort()

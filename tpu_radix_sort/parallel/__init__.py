@@ -4,10 +4,10 @@ Two exchange strategies:
 - :func:`mesh_sort` — bitonic compare-split network (fixed-size ppermute
   exchanges, log^2(D) rounds; best at small D)
 - :func:`exchange_sort` — exact-splitter radix exchange (one ragged
-  all-to-all; best at pod scale; skew-immune by rank-based splitting)
+  all-to-all; best at large D; skew-immune by rank-based splitting)
 
 Plus the reference's other public op lifted to the mesh:
-- :func:`mesh_prefix_sum` — per-shard streaming Pallas scan + ONE tiny
+- :func:`mesh_prefix_sum` — per-shard scan + ONE tiny
   all_gather of shard totals (u32 wrap addition is associative)
 - :func:`mesh_sort_segments` — ragged segmented sorts: distributed-scan
   segment ids + the composite (seg, key, idx) tuple over the

@@ -2,11 +2,8 @@
 
 Rows are independent, so the mesh lift of `ops/batched.py` is the one
 genuinely collective-free case in the parallel layer: shard the batch
-dimension, run the row-local bitonic network (`ops/bitonic.py
-sort_rows_padded`) on each shard's rows, done — zero exchange bytes.
-The shard_map exists (rather than relying on GSPMD auto-partitioning)
-because Pallas calls don't carry sharding rules: without it XLA would
-all-gather the operand to every device before the kernel.
+dimension, sort each shard's rows, done — zero exchange bytes. The
+shard_map states that partitioning outright, so no exchange can appear.
 
 Batch counts that don't divide the device count pad with dummy rows
 (sorted wastefully on the last shard, sliced off — rows never interact).
@@ -22,6 +19,11 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..ops import batched as ops_batched, common
 
 
+@functools.partial(
+    jax.jit,
+    static_argnames=("mesh", "axis_name", "bit_count", "descending",
+                     "total_order"),
+)
 def mesh_sort_batched(
     keys,
     values=None,
@@ -31,17 +33,11 @@ def mesh_sort_batched(
     bit_count: int,
     descending: bool = False,
     total_order: bool = False,
-    values_are_ranks: bool = False,
-    method: str = "bitonic",
-    block_rows=None,
-    interpret=None,
 ):
     """Distributed core of `sort_batched(mesh=)`. Callers (the public
     wrapper in `ops/batched.py`) have already validated dtypes/shapes and
     resolved `bit_count`; semantics match the single-chip
     `_sort_batched_jit` row for row."""
-    if interpret is None:
-        interpret = common.default_interpret_for_mesh(mesh)
     n_dev = mesh.shape[axis_name]
     B, n = keys.shape
     B_pad = common.round_up(max(B, 1), n_dev)
@@ -55,10 +51,6 @@ def mesh_sort_batched(
         bit_count=bit_count,
         descending=descending,
         total_order=total_order,
-        values_are_ranks=values_are_ranks,
-        method=method,
-        block_rows=block_rows,
-        interpret=interpret,
     )
     if values is None:
         fn = jax.shard_map(

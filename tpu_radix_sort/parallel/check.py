@@ -4,7 +4,7 @@ Lifts the reference's CheckSort early-exit semantics
 (`src/shaders/CheckSort.ts:139-145`: "is_sorted == 1 => zero every dispatch
 record") to a device mesh: each shard runs the same fast-gated local check
 the single-chip path uses (`ops/checksort.is_sorted` — fast 1024-element
-prefix gating the full streaming Pallas reduction), shard boundaries are
+prefix gating the full reduction), shard boundaries are
 covered by ONE `ppermute` of each shard's first element, and the verdicts
 combine with ONE `psum`. The callers wrap their sort `shard_map` in a
 `lax.cond` on the replicated verdict — a nearly-sorted global array then
@@ -30,7 +30,7 @@ def _lex_gt_scalar(a_last, b_first):
     return gt
 
 
-def _shard_verdict(cols, *, axis_name, n_dev, interpret):
+def _shard_verdict(cols, *, axis_name, n_dev):
     """Per-shard body: local fast-gated check + boundary pair, psum'd.
 
     `cols` is a tuple holding this shard's slice of each padded masked-key
@@ -38,7 +38,7 @@ def _shard_verdict(cols, *, axis_name, n_dev, interpret):
     (pre-sort) order; sentinel pads live at the global tail, so the global
     array is sorted iff the real prefix is.
     """
-    ok_local = checksort.is_sorted_cols(cols, interpret=interpret)
+    ok_local = checksort.is_sorted_cols(cols)
     bad = (~ok_local).astype(jnp.uint32)
     if n_dev > 1:
         # boundary pairs: shard d's last element vs shard d+1's first.
@@ -59,7 +59,7 @@ def _shard_verdict(cols, *, axis_name, n_dev, interpret):
     return jax.lax.psum(bad, axis_name) == 0
 
 
-def global_is_sorted(mk, *, mesh, axis_name, n_dev, interpret):
+def global_is_sorted(mk, *, mesh, axis_name, n_dev):
     """Replicated bool: is the sharded masked-key array globally sorted?
 
     One collective round (psum; plus one edge-element ppermute for D > 1).
@@ -71,7 +71,6 @@ def global_is_sorted(mk, *, mesh, axis_name, n_dev, interpret):
             _shard_verdict,
             axis_name=axis_name,
             n_dev=n_dev,
-            interpret=interpret,
         ),
         mesh=mesh,
         in_specs=(tuple(P(axis_name) for _ in cols),),
@@ -81,11 +80,11 @@ def global_is_sorted(mk, *, mesh, axis_name, n_dev, interpret):
     return fn(cols)
 
 
-def _shard_disorder(cols, *, axis_name, n_dev, count, interpret):
+def _shard_disorder(cols, *, axis_name, n_dev, count):
     """Per-shard body for the public distributed disorder count: elements at
     global index >= `count` become SENTINELs (all-equal max keys create no
-    inversions, the exact trick the single-chip padding uses), then local
-    streaming reduction + the cross-shard boundary pair, psum'd."""
+    inversions), then the local reduction + the cross-shard boundary pair,
+    psum'd."""
     L = cols[0].shape[0]
     me = jax.lax.axis_index(axis_name)
     gidx = me.astype(jnp.uint32) * jnp.uint32(L) + jnp.arange(
@@ -95,7 +94,7 @@ def _shard_disorder(cols, *, axis_name, n_dev, count, interpret):
     cols = tuple(
         jnp.where(in_count, c, jnp.uint32(0xFFFFFFFF)) for c in cols
     )
-    bad = checksort.disorder_count_cols(cols, interpret=interpret)
+    bad = checksort.disorder_count_cols(cols)
     if n_dev > 1:
         perm = [(i, i - 1) for i in range(1, n_dev)]
         recv = tuple(
@@ -146,26 +145,26 @@ def _prep_check_input(u, *, count, bit_count, mesh, axis_name,
 
 def mesh_disorder_count(u, *, mesh, axis_name="x", count=None,
                         bit_count: int | None = None,
-                        total_order: bool = False, descending: bool = False,
-                        interpret=None):
+                        total_order: bool = False, descending: bool = False):
     """Distributed adjacent-inversion count of the first `count` keys.
 
     Public mesh lift of :func:`tpu_radix_sort.disorder_count` (the
     reference's CheckSort reduction, `src/shaders/CheckSort.ts:70-113`):
-    per-shard streaming Pallas reductions + one edge-element `ppermute` +
+    per-shard reductions + one edge-element `ppermute` +
     one `psum`. Same `count`/`bit_count`/`total_order`/`descending`/dtype
     semantics as single-chip.
     """
-    from ..ops import common
-
     cols, count = _prep_check_input(
         u, count=count, bit_count=bit_count, mesh=mesh, axis_name=axis_name,
         total_order=total_order, descending=descending,
     )
     if count < 2:
         return jnp.uint32(0)
-    if interpret is None:
-        interpret = common.default_interpret_for_mesh(mesh)
+    return _disorder_core(cols, mesh=mesh, axis_name=axis_name, count=count)
+
+
+@functools.partial(jax.jit, static_argnames=("mesh", "axis_name", "count"))
+def _disorder_core(cols, *, mesh, axis_name, count):
     n_dev = mesh.shape[axis_name]
     fn = jax.shard_map(
         functools.partial(
@@ -173,7 +172,6 @@ def mesh_disorder_count(u, *, mesh, axis_name="x", count=None,
             axis_name=axis_name,
             n_dev=n_dev,
             count=count,
-            interpret=interpret,
         ),
         mesh=mesh,
         in_specs=(tuple(P(axis_name) for _ in cols),),
@@ -185,8 +183,7 @@ def mesh_disorder_count(u, *, mesh, axis_name="x", count=None,
 
 def mesh_is_sorted(u, *, mesh, axis_name="x", count=None,
                    bit_count: int | None = None,
-                   total_order: bool = False, descending: bool = False,
-                   interpret=None):
+                   total_order: bool = False, descending: bool = False):
     """Distributed fast-gated order check of the first `count` keys.
 
     Public mesh lift of :func:`tpu_radix_sort.is_sorted`: each shard runs
@@ -195,22 +192,21 @@ def mesh_is_sorted(u, *, mesh, axis_name="x", count=None,
     distributed sorts' `check_order=True`). `total_order`/`descending`
     select the correspondingly-flagged sort's key view.
     """
-    from ..ops import common
-
     cols, count = _prep_check_input(
         u, count=count, bit_count=bit_count, mesh=mesh, axis_name=axis_name,
         total_order=total_order, descending=descending,
     )
     if count < 2:
         return jnp.bool_(True)
-    if interpret is None:
-        interpret = common.default_interpret_for_mesh(mesh)
+    return _is_sorted_core(cols, mesh=mesh, axis_name=axis_name, count=count)
+
+
+@functools.partial(jax.jit, static_argnames=("mesh", "axis_name", "count"))
+def _is_sorted_core(cols, *, mesh, axis_name, count):
     n_dev = mesh.shape[axis_name]
     # elements past count become SENTINELs (elementwise, so XLA applies it
     # shard-local) — the padded-sorted-tail invariant global_is_sorted's
     # sort callers already maintain
     in_count = jnp.arange(cols[0].shape[0], dtype=jnp.uint32) < jnp.uint32(count)
     cols = tuple(jnp.where(in_count, c, jnp.uint32(0xFFFFFFFF)) for c in cols)
-    return global_is_sorted(
-        cols, mesh=mesh, axis_name=axis_name, n_dev=n_dev, interpret=interpret
-    )
+    return global_is_sorted(cols, mesh=mesh, axis_name=axis_name, n_dev=n_dev)

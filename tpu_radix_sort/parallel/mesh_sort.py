@@ -1,37 +1,33 @@
-"""Distributed sort over a JAX device mesh (shard_map + ICI collectives).
+"""Distributed sort over a JAX device mesh (shard_map + collectives).
 
 The reference is single-GPU (browser, one ``GPUDevice``) — there is no
 counterpart to cite; this layer is the new subsystem SURVEY.md §2.4/§7 calls
-for: scaling element count past one chip instead of past one workgroup
+for: scaling element count past one device instead of past one workgroup
 (the reference's recursion/2-D-dispatch tricks, ``src/utils.ts:8-23``).
 
 Algorithm: **bitonic compare-split** over the mesh axis.
 
-1. Each shard sorts its local block with the Pallas engine (ascending,
-   stable via a global-index tie-break).
+1. Each shard sorts its local block (`jax.lax.sort` on the column tuple
+   (key column(s), global index), so the order is total and stable).
 2. Run a bitonic sorting network over the D shard ids where each
    compare-exchange is a *compare-split*: the paired shards exchange their
-   full blocks (a fixed-size `ppermute` over ICI), the lower side keeps the
-   L smallest of the 2L union, the upper side the L largest, and each
+   full blocks (a fixed-size `ppermute`), the lower side keeps the L
+   smallest of the 2L union, the upper side the L largest, and each
    re-sorts locally. Because both blocks are ascending, the min/max halves
-   are elementwise ``min/max(x_i, reverse(y)_i)`` (one VPU pass) and each
-   half is *bitonic*, so the local re-sort is a single bitonic merge
-   (``ops.bitonic.merge_padded``, log2(L) stages) — not a full sort.
+   are elementwise ``min/max(x_i, reverse(y)_i)`` (one pass), and the local
+   re-sort restores ascending order.
 
-Why this design for TPU:
+Properties:
 
 - every exchange is the full fixed-size block → static shapes, no ragged
   all-to-all, immune to key skew (a Zipf-hot bucket changes nothing);
-- `ppermute` pairs ride the ICI torus; XLA overlaps the transfer with the
-  preceding merge of the other half of the schedule;
-- stability and shard-shape invariance come from the same (key, index)
-  tie-break the single-chip engine uses.
+- stability and shard-shape invariance come from the (key, index)
+  tie-break.
 
 Cost: bitonic on D shards is log2(D)·(log2(D)+1)/2 compare-splits, each
-moving L elements per shard and one local bitonic merge. For D ≤ 64 this is
-competitive with a histogram+all_to_all radix exchange and has no skew or
-padding pathology; the radix-exchange layer is the planned complement for
-very large D.
+moving L elements per shard plus one local re-sort. The radix-exchange
+layer (`radix_exchange.py`) moves each element once and is the complement
+for larger D.
 """
 from __future__ import annotations
 
@@ -41,9 +37,17 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops import bitonic, common
+from ..ops import common
 
-LANES = bitonic.LANES
+# per-shard padded lengths are powers of two of at least this many elements
+MIN_SHARD_LEN = 128
+
+
+def _local_sort(arrs, nk):
+    """Sort a shard's column tuple by its leading `nk` columns. The tuple
+    (key column(s), unique global index) is a total order, so no stability
+    flag is needed."""
+    return tuple(jax.lax.sort(tuple(arrs), num_keys=nk, is_stable=False))
 
 
 def _compare_split_ce(arrs, recv, keep_min, nk):
@@ -55,7 +59,7 @@ def _compare_split_ce(arrs, recv, keep_min, nk):
     so lexicographic `<` is a total order and the two sides keep
     complementary elements.
     """
-    mine_lt = bitonic._lex_lt(arrs[:nk], recv[:nk])
+    mine_lt = common.lex_lt(arrs[:nk], recv[:nk])
     take_mine = jnp.where(keep_min, mine_lt, ~mine_lt)
     return tuple(jnp.where(take_mine, a, r) for a, r in zip(arrs, recv))
 
@@ -66,9 +70,9 @@ def _exchange_and_ce(arrs, perm, axis_name, keep_min, overlap_chunks, nk):
     With ``overlap_chunks == S > 1`` the block is exchanged in S sub-chunks
     and the `ppermute` for chunk c+1 is issued *before* the compare-select
     of chunk c — a software pipeline whose independent collective-permutes
-    XLA's async scheduler (start/done pairs on TPU) overlaps with the
-    selects (SURVEY.md §7 overlap groundwork; the byte-identical S == 1
-    path is the reference behavior). My chunk c pairs with the partner's
+    XLA's async scheduler can overlap with the selects (SURVEY.md §7
+    overlap groundwork; the byte-identical S == 1 path is the reference
+    behavior). My chunk c pairs with the partner's
     chunk S-1-c reversed: global position p pairs with L-1-p.
     """
     if overlap_chunks <= 1:
@@ -102,8 +106,8 @@ def _exchange_and_ce(arrs, perm, axis_name, keep_min, overlap_chunks, nk):
     )
 
 
-def _compare_split_network(arrs, axis_name, n_dev, *, block_rows, interpret,
-                           overlap_chunks=1, nk=2):
+def _compare_split_network(arrs, axis_name, n_dev, *, overlap_chunks=1,
+                           nk=2):
     """Bitonic sorting network over shard ids with compare-split exchanges.
 
     arrs: tuple of (L,) u32 arrays whose leading `nk` columns are the
@@ -123,25 +127,17 @@ def _compare_split_network(arrs, axis_name, n_dev, *, block_rows, interpret,
             half = _exchange_and_ce(
                 arrs, perm, axis_name, keep_min, overlap_chunks, nk
             )
-            arrs = bitonic.merge_padded(
-                half, stable=True, block_rows=block_rows,
-                interpret=interpret, n_keys=nk,
-            )
+            arrs = _local_sort(half, nk)
             j //= 2
         k *= 2
     return arrs
 
 
-def _shard_sort(arrs, *, axis_name, n_dev, block_rows, interpret,
-                overlap_chunks=1, nk=2):
-    arrs = bitonic.sort_padded(
-        arrs, stable=True, block_rows=block_rows, interpret=interpret,
-        n_keys=nk,
-    )
+def _shard_sort(arrs, *, axis_name, n_dev, overlap_chunks=1, nk=2):
+    arrs = _local_sort(arrs, nk)
     if n_dev > 1:
         arrs = _compare_split_network(
-            arrs, axis_name, n_dev, block_rows=block_rows,
-            interpret=interpret, overlap_chunks=overlap_chunks, nk=nk,
+            arrs, axis_name, n_dev, overlap_chunks=overlap_chunks, nk=nk,
         )
     return arrs
 
@@ -157,8 +153,6 @@ def mesh_sort(
     check_order: bool = False,
     total_order: bool = False,
     descending: bool = False,
-    block_rows=None,
-    interpret=None,
     overlap_chunks: int = 1,
 ):
     """Stable ascending sort of `keys` (and optional `values`) across a mesh.
@@ -176,7 +170,7 @@ def mesh_sort(
     of the stable sort.
 
     `keys`/`values` are global 1-D arrays; shard them along `axis_name`
-    (``NamedSharding(mesh, P(axis_name))``) for the exchange to ride ICI.
+    (``NamedSharding(mesh, P(axis_name))``).
     Returns sorted keys, or (keys, values).
 
     ``overlap_chunks=S > 1`` pipelines each compare-split exchange in S
@@ -205,15 +199,13 @@ def mesh_sort(
         if values.shape != keys.shape:
             raise ValueError("values must match keys shape")
         common.validate_value_dtype(values)
-    if interpret is None:
-        interpret = common.default_interpret_for_mesh(mesh)
     n_dev = mesh.shape[axis_name]
 
     if count <= 1:
         return keys if values is None else (keys, values)
 
-    # per-shard padded length: pow2 multiple of LANES covering count/n_dev
-    per = max(LANES, common.next_pow2(common.cdiv(count, n_dev)))
+    # per-shard padded length: a power of two covering count/n_dev
+    per = max(MIN_SHARD_LEN, common.next_pow2(common.cdiv(count, n_dev)))
     n_pad = per * n_dev
     if overlap_chunks > 1 and per % overlap_chunks != 0:
         raise ValueError(
@@ -221,9 +213,33 @@ def mesh_sort(
             f"per-shard length {per}"
         )
 
-    # key columns: one for 32-bit dtypes, (hi, lo) for 64-bit (the engine's
-    # lexicographic column tuple, ops/bitonic.py _lex_lt); masked + desc
-    # flips per column, exactly like the single-chip paths
+    return _mesh_sort_core(
+        keys, values, mesh=mesh, axis_name=axis_name, count=count,
+        bit_count=bit_count, check_order=check_order,
+        total_order=total_order, descending=descending,
+        overlap_chunks=overlap_chunks,
+    )
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("mesh", "axis_name", "count", "bit_count",
+                     "check_order", "total_order", "descending",
+                     "overlap_chunks"),
+)
+def _mesh_sort_core(keys, values, *, mesh, axis_name, count, bit_count,
+                    check_order, total_order, descending, overlap_chunks):
+    """Jitted body of :func:`mesh_sort` (inputs already validated); one
+    compiled program per static configuration."""
+    wide = common.is_64bit_key_dtype(keys.dtype)
+    n = keys.shape[0]
+    n_dev = mesh.shape[axis_name]
+    per = max(MIN_SHARD_LEN, common.next_pow2(common.cdiv(count, n_dev)))
+    n_pad = per * n_dev
+
+    # key columns: one for 32-bit dtypes, (hi, lo) for 64-bit (a
+    # lexicographic column tuple); masked + desc flips per column, exactly
+    # like the single-chip paths
     if wide:
         if total_order:
             full_cols = common.to_total_order_u64_cols(keys[:count])
@@ -271,15 +287,12 @@ def mesh_sort(
             _shard_sort,
             axis_name=axis_name,
             n_dev=n_dev,
-            block_rows=block_rows,
-            interpret=interpret,
             overlap_chunks=overlap_chunks,
             nk=nk,
         ),
         mesh=mesh,
         in_specs=(tuple(P(axis_name) for _ in arrs),),
         out_specs=tuple(P(axis_name) for _ in arrs),
-        # Pallas calls inside the shard body don't carry vma annotations yet.
         check_vma=False,
     )
     if check_order:
@@ -287,7 +300,6 @@ def mesh_sort(
 
         ok = check.global_is_sorted(
             mk_cols, mesh=mesh, axis_name=axis_name, n_dev=n_dev,
-            interpret=interpret,
         )
         out = jax.lax.cond(
             ok, lambda: tuple(arrs), lambda: fn(tuple(arrs))

@@ -7,7 +7,7 @@ the log^2(D) full-data rounds of `mesh_sort`'s compare-split network.
 
 Phases (all inside one `shard_map`, all static-shape):
 
-1. **Local sort** by (key, global index) — the Pallas bitonic engine.
+1. **Local sort** by (key, global index) — `jax.lax.sort`.
 2. **Exact splitter selection.** The boundary between shards d-1 and d is
    the (key, idx) pair of global rank d*L. Because (key, idx) pairs are
    distinct, rank boundaries are exact points even under adversarial key
@@ -24,15 +24,12 @@ Phases (all inside one `shard_map`, all static-shape):
    (data is sorted), receive sizes come from an all-gathered D x D size
    matrix, and every shard receives EXACTLY L elements — rank ranges tile
    the array. Payloads ride the same metadata.
-4. **D-way merge** of the received sorted chunks: each source's chunk sits
-   in its own pow2 slot, so only the log2(D) bitonic merge-tree rounds run
-   (`bitonic.merge_tree_padded`); a slot-overflowing skew chunk makes every
-   shard agree (all-gathered size matrix) to fall back to a full re-sort.
+4. **Local re-sort** of the L received elements, which arrive as D sorted
+   runs laid out contiguously in source order.
 
 Communication: one data exchange + 2 probe-count psums + two small
 all_gathers ((D,2,D-1) tie counts and the (D,D) size matrix) — vs
-compare-split's log2(D)(log2(D)+1)/2 full-data exchanges. Compare-split
-wins at small D; this wins at pod scale.
+compare-split's log2(D)(log2(D)+1)/2 full-data exchanges.
 """
 from __future__ import annotations
 
@@ -42,15 +39,14 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops import bitonic, common
-
-LANES = bitonic.LANES
+from ..ops import common
+from .mesh_sort import MIN_SHARD_LEN, _local_sort
 
 
 def _probe_log2(n_dev):
     """Probes-per-round exponent k for the key bisection: key_bits/k psum
     rounds of (D-1)*2^k u32 counts each. k=16 (2 rounds at 32-bit, 4 at
-    64-bit) while the payload stays under ~16 MB; k=8 at pod-scale D."""
+    64-bit) while the payload stays under ~16 MB; k=8 at large D."""
     return 16 if (n_dev - 1) << 16 <= 1 << 22 else 8
 
 
@@ -60,15 +56,13 @@ def _select_splits(sk, targets, *, axis_name, n_dev):
 
     sk: this shard's (L,) keys sorted ascending (by (key, idx); the idx
     tie-break is implicit, see below), as u32 — or u64 for wide keys (the
-    (hi, lo) columns joined; XLA emulates u64 compares as u32 pairs, and
-    this is host-graph XLA, not Pallas, so the device-code-stays-u32 rule
-    is untouched). targets: (Q,) uint32 global ranks. Returns s_mid (Q,)
+    (hi, lo) columns joined). targets: (Q,) uint32 global ranks. Returns s_mid (Q,)
     int32 = how many local elements rank below each boundary; the s_mid
     sum over shards equals each target exactly, so the received rank
     ranges tile the array.
 
-    Replaces the round-3 64-round (32 key + 32 idx) psum bisection
-    (round-3 VERDICT item 3) with:
+    Instead of a bit-by-bit bisection (64 psum rounds for a 32-bit key
+    plus its idx), selection takes:
 
     1. **Multi-probe key bisection** — ceil(key_bits/k) rounds, each
        counting 2^k equispaced probes per target in one `psum` (vectorized
@@ -82,10 +76,10 @@ def _select_splits(sk, targets, *, axis_name, n_dev):
        count key == K_t) lets every shard compute its own prefix of the
        tie run in closed form: take_s = clip(t_ties - ties_before_s, 0, m_s).
 
-    Collective rounds (32-bit): 2 psums + 1 all_gather (D <= 32; 4+1 at
-    pod scale) vs the old 64 psums + 1 gather; 64-bit keys pay 4+1 (8+1) —
+    Collective rounds (32-bit): 2 psums + 1 all_gather (D <= 64; 4+1
+    above) vs the old 64 psums + 1 gather; 64-bit keys pay 4+1 (8+1) —
     the same tie distribution applies unchanged because idx is still the
-    contiguous iota (round-4 VERDICT item 1).
+    contiguous iota.
     """
     q = targets.shape[0]
     key_bits = 64 if sk.dtype == jnp.uint64 else 32
@@ -159,18 +153,15 @@ def ragged_all_to_all_emulated(
     return buf
 
 
-def _shard_exchange_sort(arrs, *, axis_name, n_dev, block_rows, interpret,
-                         use_ragged_a2a, n_key_cols=1):
+def _shard_exchange_sort(arrs, *, axis_name, n_dev, use_ragged_a2a,
+                         n_key_cols=1):
     """Per-shard body: local sort -> exact split -> ragged a2a -> re-sort.
 
     `n_key_cols`: leading key columns in `arrs` (1 for u32 keys, 2 for the
     wide (hi, lo) pair); the idx tie column follows them either way.
     """
     n_keys = n_key_cols + 1  # + idx tie column
-    arrs = bitonic.sort_padded(
-        arrs, stable=True, block_rows=block_rows, interpret=interpret,
-        n_keys=n_keys,
-    )
+    arrs = _local_sort(arrs, n_keys)
     if n_dev == 1:
         return arrs
     if n_key_cols == 2:
@@ -192,31 +183,10 @@ def _shard_exchange_sort(arrs, *, axis_name, n_dev, block_rows, interpret,
     sizes = jax.lax.all_gather(send_sizes, axis_name)  # (D, D)
     recv_sizes = sizes[:, me]
 
-    # Delivery layout (phase 4 = D-way merge, round-2 VERDICT item 2):
-    # each source's chunk lands in its own pow2 slot of S = 2L/Dp elements
-    # (source s at offset s*S), the buffer pre-filled with identical
-    # sentinel tuples. The received state — Dp sorted runs in slots — then
-    # needs only the log2(Dp) bitonic merge rounds k = 2S..Dp*S
-    # (`bitonic.merge_tree_padded`) instead of a full O(log^2 L) re-sort.
-    # Under heavy skew a chunk can exceed its slot (e.g. already-sorted
-    # input sends one full-L chunk); then every shard agrees (the size
-    # matrix is all-gathered) to fall back to the contiguous layout + full
-    # re-sort of the round-1 design.
-    n_pow2 = 1 << (n_dev - 1).bit_length()
-    slot = max(LANES, (2 * L) // n_pow2)
-    buf_len = max(n_pow2 * slot, L)
-    fits = jnp.max(sizes) <= slot
-
-    contig_csum = jnp.cumsum(sizes, axis=0)
-    contig_before = contig_csum - sizes  # exclusive over source shards
-    my_contig = jnp.take_along_axis(
-        contig_before, jnp.broadcast_to(me, (1, n_dev)), axis=0
-    )[0].astype(jnp.int32)
-    # slotted: my chunk to every destination lands at my slot, offset me*S
-    my_slotted = jnp.full((n_dev,), me * slot, jnp.int32)
-    out_offsets = jnp.where(fits, my_slotted, my_contig)
-
-    sentinel_fill = [common.SENTINEL_U32] * len(arrs)
+    # delivery layout: source s's chunk lands after the chunks of sources
+    # < s, so every shard's L received elements fill its buffer exactly
+    contig_before = jnp.cumsum(sizes, axis=0) - sizes  # exclusive over sources
+    out_offsets = contig_before[me].astype(jnp.int32)
 
     out = []
     if not use_ragged_a2a:
@@ -224,21 +194,19 @@ def _shard_exchange_sort(arrs, *, axis_name, n_dev, block_rows, interpret,
         # pinned emulation, see ragged_all_to_all_emulated
         starts_g = jax.lax.all_gather(starts, axis_name)  # (D, D)
         offs_g = jax.lax.all_gather(out_offsets, axis_name)  # (D, D)
-        for a, fill in zip(arrs, sentinel_fill):
-            buf = jnp.full((buf_len,), fill, a.dtype)
+        for a in arrs:
             out.append(
                 ragged_all_to_all_emulated(
-                    a, buf, starts_g, sizes, offs_g,
+                    a, jnp.zeros_like(a), starts_g, sizes, offs_g,
                     axis_name=axis_name, n_dev=n_dev,
                 )
             )
     else:
-        for a, fill in zip(arrs, sentinel_fill):
-            buf = jnp.full((buf_len,), fill, a.dtype)
+        for a in arrs:
             out.append(
                 jax.lax.ragged_all_to_all(
                     a,
-                    buf,
+                    jnp.zeros_like(a),
                     starts,
                     send_sizes,
                     out_offsets,
@@ -246,32 +214,7 @@ def _shard_exchange_sort(arrs, *, axis_name, n_dev, block_rows, interpret,
                     axis_name=axis_name,
                 )
             )
-
-    def merge_branch(bufs):
-        # runs must alternate ascending/descending (the state of a bitonic
-        # sort after round k=slot): reverse the odd slots
-        rev = []
-        for a in bufs:
-            a2 = a[: n_pow2 * slot].reshape(n_pow2, slot)
-            odd = (jnp.arange(n_pow2, dtype=jnp.int32) % 2 == 1)[:, None]
-            rev.append(
-                jnp.where(odd, a2[:, ::-1], a2).reshape(n_pow2 * slot)
-            )
-        merged = bitonic.merge_tree_padded(
-            tuple(rev), run=slot, stable=True, block_rows=block_rows,
-            interpret=interpret, n_keys=n_keys,
-        )
-        # reals sort before the identical sentinel pad tuples: first L
-        return tuple(m[:L] for m in merged)
-
-    def sort_branch(bufs):
-        # contiguous layout: D sorted chunks concatenated in [:L]
-        return bitonic.sort_padded(
-            tuple(b[:L] for b in bufs), stable=True, block_rows=block_rows,
-            interpret=interpret, n_keys=n_keys,
-        )
-
-    return jax.lax.cond(fits, merge_branch, sort_branch, tuple(out))
+    return _local_sort(out, n_keys)
 
 
 def exchange_sort(
@@ -285,8 +228,6 @@ def exchange_sort(
     check_order: bool = False,
     total_order: bool = False,
     descending: bool = False,
-    block_rows=None,
-    interpret=None,
     use_ragged_a2a=None,
 ):
     """Distributed stable sort via exact-splitter radix exchange.
@@ -305,14 +246,14 @@ def exchange_sort(
     splitter bisects the joined u64 probe domain (4 psum rounds at k=16
     instead of 2), the tie distribution is unchanged (idx is still the
     contiguous iota), and the exchange moves one extra column — so wide
-    keys keep the one-data-crossing pod-scale property (round-4 VERDICT
-    item 1; `bit_count` extends to 4..64).
+    keys keep the one-data-crossing property (`bit_count` extends to
+    4..64).
 
-    `use_ragged_a2a` picks the exchange transport independently of the
-    Pallas `interpret` choice: True = `jax.lax.ragged_all_to_all` (TPU),
-    False = the semantics-pinned emulation (`ragged_all_to_all_emulated` —
-    XLA:CPU has no ragged-all-to-all thunk), None = True exactly when the
-    mesh devices are not CPU.
+    `use_ragged_a2a` picks the exchange transport: True =
+    `jax.lax.ragged_all_to_all` (GPU meshes), False = the semantics-pinned
+    emulation (`ragged_all_to_all_emulated` — XLA:CPU has no
+    ragged-all-to-all thunk), None = True exactly when no mesh device is a
+    CPU.
     """
     common.guard_64bit_downcast(keys)
     keys = jnp.asarray(keys)
@@ -336,21 +277,36 @@ def exchange_sort(
         if values.shape != keys.shape:
             raise ValueError("values must match keys shape")
         common.validate_value_dtype(values)
-    if interpret is None:
-        interpret = common.default_interpret_for_mesh(mesh)
     if use_ragged_a2a is None:
-        # same predicate as default_interpret_for_mesh (any CPU device =>
-        # emulation), so a mixed cpu/tpu mesh never silently pairs the real
-        # ragged collective (which XLA:CPU cannot run) with interpret kernels
+        # any CPU device => emulation: XLA:CPU cannot run the collective
         use_ragged_a2a = not any(
             d.platform == "cpu" for d in mesh.devices.flat
         )
-    n_dev = mesh.shape[axis_name]
-
     if count <= 1:
         return keys if values is None else (keys, values)
+    return _exchange_sort_core(
+        keys, values, mesh=mesh, axis_name=axis_name, count=count,
+        bit_count=bit_count, check_order=check_order,
+        total_order=total_order, descending=descending,
+        use_ragged_a2a=use_ragged_a2a,
+    )
 
-    per = max(LANES, common.next_pow2(common.cdiv(count, n_dev)))
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("mesh", "axis_name", "count", "bit_count",
+                     "check_order", "total_order", "descending",
+                     "use_ragged_a2a"),
+)
+def _exchange_sort_core(keys, values, *, mesh, axis_name, count, bit_count,
+                        check_order, total_order, descending,
+                        use_ragged_a2a):
+    """Jitted body of :func:`exchange_sort` (inputs already validated); one
+    compiled program per static configuration."""
+    wide = common.is_64bit_key_dtype(keys.dtype)
+    n = keys.shape[0]
+    n_dev = mesh.shape[axis_name]
+    per = max(MIN_SHARD_LEN, common.next_pow2(common.cdiv(count, n_dev)))
     n_pad = per * n_dev
 
     if wide:
@@ -400,8 +356,6 @@ def exchange_sort(
             _shard_exchange_sort,
             axis_name=axis_name,
             n_dev=n_dev,
-            block_rows=block_rows,
-            interpret=interpret,
             use_ragged_a2a=use_ragged_a2a,
             n_key_cols=len(mk_cols),
         ),
@@ -415,7 +369,6 @@ def exchange_sort(
 
         ok = check.global_is_sorted(
             mk_cols, mesh=mesh, axis_name=axis_name, n_dev=n_dev,
-            interpret=interpret,
         )
         out = jax.lax.cond(
             ok, lambda: tuple(arrs), lambda: fn(tuple(arrs))

@@ -4,9 +4,8 @@ The reference's public `PrefixSumKernel` (`src/kernels/PrefixSumKernel.ts`)
 is single-GPU; this lifts the op to the mesh layer the same way the sorts
 are lifted (SURVEY.md §2.4 cross-device subsystem). The reference's
 recursion-until-one-workgroup shape (`PrefixSumKernel.ts:111-113`) maps to
-exactly ONE collective level here: each shard runs the streaming-carry
-Pallas scan (`ops/scan.py`) on its local chunk, shard totals are
-all-gathered once, and every shard adds the closed-form prefix of the
+exactly ONE collective level here: each shard scans its local chunk with
+`jnp.cumsum`, shard totals are all-gathered once, and every shard adds the closed-form prefix of the
 totals before it — u32 wraparound addition is associative, so the offset
 fold is exact.
 
@@ -21,13 +20,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops import common, scan as scan_ops
-
-LANES = scan_ops.LANES
+from ..ops import common
 
 
-def _shard_prefix_sum(items, *, axis_name, n_dev, count, inclusive,
-                      block_rows, interpret):
+def _shard_prefix_sum(items, *, axis_name, n_dev, count, inclusive):
     """Per-shard body. items: (L,) u32 local chunk of the zero-padded
     global array. `count` is the GLOBAL count; elements at global index
     >= count pass through untouched (the reference's in-place-over-prefix
@@ -38,24 +34,8 @@ def _shard_prefix_sum(items, *, axis_name, n_dev, count, inclusive,
     active = gidx < jnp.uint32(count)
     u = jnp.where(active, items, jnp.uint32(0))
 
-    # local inclusive scan through the same Pallas streaming-carry kernel
-    # as the single-chip op (pad the chunk to whole tiles of zeros)
-    rows_needed = common.cdiv(L, LANES)
-    block = block_rows or (
-        scan_ops.INTERPRET_BLOCK_ROWS if interpret else
-        scan_ops.DEFAULT_BLOCK_ROWS
-    )
-    if rows_needed <= block:
-        rows = max(8, common.next_pow2(rows_needed))
-        block = rows
-    else:
-        rows = common.round_up(rows_needed, block)
-    x2d = common.pad_to(u, rows * LANES, jnp.uint32(0)).reshape(rows, LANES)
-    inc = scan_ops.scan_padded(
-        x2d, inclusive=True, block_rows=block, interpret=interpret
-    ).reshape(rows * LANES)
+    inc = jnp.cumsum(u, dtype=jnp.uint32)
     total = inc[L - 1]
-    inc = inc[:L]
 
     # one collective: exclusive prefix of the shard totals
     totals = jax.lax.all_gather(total[None], axis_name).reshape(n_dev)
@@ -67,12 +47,12 @@ def _shard_prefix_sum(items, *, axis_name, n_dev, count, inclusive,
 
 
 def mesh_prefix_sum(items, *, mesh: Mesh, axis_name: str = "x", count=None,
-                    inclusive: bool = False, block_rows=None, interpret=None):
+                    inclusive: bool = False):
     """Prefix sum of the first `count` elements across a mesh axis.
 
     Semantics match the single-chip :func:`tpu_radix_sort.prefix_sum`
     (exclusive by default, u32 wraparound, suffix untouched). Shard `items`
-    along `axis_name` for the (single, tiny) collective to ride ICI.
+    along `axis_name`; the one collective is a tiny all_gather.
     """
     items = jnp.asarray(items)
     if items.dtype not in (jnp.uint32, jnp.int32):
@@ -85,12 +65,17 @@ def mesh_prefix_sum(items, *, mesh: Mesh, axis_name: str = "x", count=None,
         raise ValueError(f"count {count} out of range")
     if count == 0:
         return items
-    if interpret is None:
-        interpret = common.default_interpret_for_mesh(mesh)
-    n_dev = mesh.shape[axis_name]
+    return _mesh_prefix_sum_core(items, mesh=mesh, axis_name=axis_name,
+                                 count=count, inclusive=inclusive)
 
+
+@functools.partial(
+    jax.jit, static_argnames=("mesh", "axis_name", "count", "inclusive"))
+def _mesh_prefix_sum_core(items, *, mesh, axis_name, count, inclusive):
+    n = items.shape[0]
+    n_dev = mesh.shape[axis_name]
     u = jax.lax.bitcast_convert_type(items, jnp.uint32)
-    n_pad = common.round_up(n, n_dev * LANES)
+    n_pad = common.round_up(n, n_dev)
     # zero pad: padded tail is beyond count, passes through, sliced off
     u = common.pad_to(u, n_pad, jnp.uint32(0))
 
@@ -101,8 +86,6 @@ def mesh_prefix_sum(items, *, mesh: Mesh, axis_name: str = "x", count=None,
             n_dev=n_dev,
             count=count,
             inclusive=inclusive,
-            block_rows=block_rows,
-            interpret=interpret,
         ),
         mesh=mesh,
         in_specs=P(axis_name),

@@ -7,7 +7,7 @@ composes two existing subsystems, adding no new collective kinds:
 
 - segment ids / starts come from the SAME boundary-scatter trick as the
   single-chip path, but scanned with the DISTRIBUTED prefix sum
-  (`parallel/scan.py` — per-shard Pallas scan + one tiny all_gather);
+  (`parallel/scan.py` — per-shard scan + one tiny all_gather);
 - the composite (segment_id, key, idx) column tuple then rides the
   compare-split network (`mesh_sort._shard_sort`) unchanged — segment id
   dominates the lexicographic compare, so elements never leave their
@@ -26,42 +26,32 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops import bitonic, common
+from ..ops import common
+from ..ops.segmented import segment_boundary_deltas
 # NOTE: `from . import mesh_sort` would resolve to the FUNCTION (the
 # package __init__ rebinds the name); import the symbol directly.
-from .mesh_sort import _shard_sort
+from .mesh_sort import MIN_SHARD_LEN, _shard_sort
 from .scan import mesh_prefix_sum
 
-LANES = bitonic.LANES
 
-
-def _mesh_segment_ids_and_starts(offsets, n, *, mesh, axis_name, interpret,
+def _mesh_segment_ids_and_starts(offsets, n, *, mesh, axis_name,
                                  need_starts):
-    """Element position -> (segment id, segment start), distributed.
-
-    Same no-gather construction as `ops/segmented._segment_ids_and_starts`
-    (searchsorted's data-dependent gathers are element-serial on TPU —
-    DESIGN.md "Segmented engine"): scatter S-1 boundary records, scan.
-    Here the scan is the mesh prefix sum, whose only collective is one
-    (1,)-per-shard all_gather of shard totals.
-    """
-    b = offsets[1:-1].astype(jnp.int32)  # interior boundaries (S-1)
-    ind = jnp.zeros((n,), jnp.uint32).at[b].add(jnp.uint32(1), mode="drop")
-    seg = mesh_prefix_sum(
-        ind, mesh=mesh, axis_name=axis_name, inclusive=True,
-        interpret=interpret,
-    )
+    """Element position -> (segment id, segment start), distributed: the
+    single-chip boundary deltas, scanned with the mesh prefix sum (whose
+    only collective is one (1,)-per-shard all_gather of shard totals)."""
+    ind, d = segment_boundary_deltas(offsets, n, need_starts=need_starts)
+    seg = mesh_prefix_sum(ind, mesh=mesh, axis_name=axis_name, inclusive=True)
     if not need_starts:
         return seg, None
-    delta = (offsets[1:-1] - offsets[:-2]).astype(jnp.uint32)
-    d = jnp.zeros((n,), jnp.uint32).at[b].add(delta, mode="drop")
-    starts = mesh_prefix_sum(
-        d, mesh=mesh, axis_name=axis_name, inclusive=True,
-        interpret=interpret,
-    )
+    starts = mesh_prefix_sum(d, mesh=mesh, axis_name=axis_name, inclusive=True)
     return seg, starts
 
 
+@functools.partial(
+    jax.jit,
+    static_argnames=("mesh", "axis_name", "bit_count", "descending",
+                     "total_order", "make_ranks", "overlap_chunks"),
+)
 def mesh_sort_segments(
     keys,
     offsets,
@@ -73,8 +63,6 @@ def mesh_sort_segments(
     descending: bool = False,
     total_order: bool = False,
     make_ranks: bool = False,
-    block_rows=None,
-    interpret=None,
     overlap_chunks: int = 1,
 ):
     """Distributed core of `sort_segments(mesh=)` / `argsort_segments(mesh=)`.
@@ -88,8 +76,6 @@ def mesh_sort_segments(
     """
     n = keys.shape[0]
     S = offsets.shape[0] - 1
-    if interpret is None:
-        interpret = common.default_interpret_for_mesh(mesh)
     n_dev = mesh.shape[axis_name]
     have_values = values is not None or make_ranks
     if n <= 1:
@@ -125,8 +111,7 @@ def mesh_sort_segments(
         key_width = bit_count
 
     seg, seg_starts = _mesh_segment_ids_and_starts(
-        offsets, n, mesh=mesh, axis_name=axis_name, interpret=interpret,
-        need_starts=make_ranks,
+        offsets, n, mesh=mesh, axis_name=axis_name, need_starts=make_ranks,
     )
     seg_bits = max(1, (S - 1).bit_length())
     packed = not wide and seg_bits + key_width <= 32
@@ -147,10 +132,10 @@ def mesh_sort_segments(
     else:
         vcols = ()
 
-    # pad to a pow2-of-LANES per-shard length; sentinel composite/segment
+    # pad to a pow2 per-shard length; sentinel composite/segment
     # keys sort to the global tail (ties against a real 0xFFFFFFFF packed
     # key resolve by the idx column: real elements carry idx < n)
-    per = max(LANES, common.next_pow2(common.cdiv(n, n_dev)))
+    per = max(MIN_SHARD_LEN, common.next_pow2(common.cdiv(n, n_dev)))
     n_pad = per * n_dev
     arrs = [common.pad_to(c, n_pad, common.SENTINEL_U32) for c in key_cols]
     arrs.append(jnp.arange(n_pad, dtype=jnp.uint32))
@@ -166,15 +151,13 @@ def mesh_sort_segments(
             _shard_sort,
             axis_name=axis_name,
             n_dev=n_dev,
-            block_rows=block_rows,
-            interpret=interpret,
             overlap_chunks=overlap_chunks,
             nk=nk,
         ),
         mesh=mesh,
         in_specs=(tuple(P(axis_name) for _ in arrs),),
         out_specs=tuple(P(axis_name) for _ in arrs),
-        check_vma=False,  # Pallas calls inside the body carry no vma yet
+        check_vma=False,
     )
     out = fn(tuple(arrs))
 

@@ -1,5 +1,6 @@
-"""Runtime layer: device timing, profiling, native CPU baseline."""
+"""Runtime layer: host-clock timing, device facts, profiling, native CPU
+baseline."""
 from .profiler import annotate, trace
-from .timing import device_time
+from .timing import Timing, time_call
 
-__all__ = ["device_time", "trace", "annotate"]
+__all__ = ["Timing", "time_call", "trace", "annotate"]

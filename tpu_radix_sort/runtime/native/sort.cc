@@ -2,7 +2,7 @@
 //
 // Role: the reference benchmarks its GPU sort against the host JS engine's
 // `Array.prototype.sort` (`example/index.ts:147-151`); our harness compares
-// the TPU engine against this C++ LSD radix sort — a *strong* CPU baseline
+// the GPU engine against this C++ LSD radix sort — a *strong* CPU baseline
 // (O(n), cache-aware, ~10x faster than std::sort on 32-bit keys), so the
 // reported speedups are honest.
 //

@@ -1,20 +1,21 @@
 """Tracing / profiling hooks (reference counterpart: timestamp queries).
 
 The reference's only profiling is WebGPU `timestamp-query` wrapped by
-`createTimestampQuery` (`example/tests.ts:247-285`). The TPU equivalents:
+`createTimestampQuery` (`example/tests.ts:247-285`). The equivalents here:
 
 - :func:`trace` — context manager around `jax.profiler` emitting an XPlane
   trace viewable in TensorBoard/Perfetto (device + host timeline, per-kernel
   HLO ops — strictly more than begin/end pass timestamps).
 - :func:`annotate` — named TraceAnnotation so individual dispatches show up
   as labeled spans inside a trace.
-- :func:`device_time` (re-exported in runtime) — slope-method wall timing
-  for headline numbers where a full trace is overkill.
+- :func:`time_call` (re-exported in runtime) — host-clock timing around
+  `block_until_ready` for headline numbers where a trace is overkill.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import tempfile
 
 import jax
 
@@ -23,10 +24,11 @@ import jax
 def trace(log_dir: str | None = None):
     """Capture a jax.profiler trace for the enclosed block.
 
-    Writes to `log_dir` (default $TRS_TRACE_DIR or /tmp/trs_trace). View with
-    TensorBoard's profile plugin or xprof.
+    Writes to `log_dir` (default $TRS_TRACE_DIR, else `trs_trace` in the
+    temp directory). View with TensorBoard's profile plugin or xprof.
     """
-    log_dir = log_dir or os.environ.get("TRS_TRACE_DIR", "/tmp/trs_trace")
+    log_dir = log_dir or os.environ.get(
+        "TRS_TRACE_DIR", os.path.join(tempfile.gettempdir(), "trs_trace"))
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir
